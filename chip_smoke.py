@@ -6,11 +6,13 @@
 Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compile the hand-written kernels (csrc/*.cu) with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes and at the large shapes of KERNELS.md,
-   timed with CUDA events, and by torch.profiler for the device's own
-   time, beside its bound; each timed call reads inputs that are not in
-   L2.
+3. kernels: each of the six kernels (fm_cross and din_attention with
+   their backwards, rows_gather, rows_write) against its plain PyTorch
+   version on the card, at the serving or training path's shapes and at
+   the large shapes of KERNELS.md, timed with CUDA events, and by
+   torch.profiler for the device's own time, beside its bound and, for
+   the row kernels, the PyTorch call computing the same function; each
+   timed call reads inputs that are not in L2.
 4. serving: the DIN and DeepFMv2 exports behind the port's HTTP server
    on the card; the five endpoints and 2 x RANKED_REQUESTS concurrent
    ranked requests over HTTP (several seconds), with the kernels' launch
@@ -18,7 +20,17 @@ Phases, each fatal on failure:
    card's wave scores against the same scorers on the CPU; one wave's
    wall time beside its model forward alone, and the device's busy time
    and idle share over a profiled run of waves (torch.profiler).
-5. summary: one {"kernels": [...]} line, then the last line,
+5. training: DeepFM, DeepFMv2 (lazy row-Adam on its user and movie
+   tables) and DIN at the shipped widths, batch 65536, on synthetic data
+   with a planted signal: one step's loss and gradients card against CPU;
+   Trainer.fit for 2 epochs of 8 steps (the loss falls, the last AUC
+   beats 0.5, examples/s) with the launch counters read around it, held
+   against the same fit on the CPU (per-epoch loss and AUC, each
+   parameter's drift); one step's forward/backward/optimizer ms and the
+   device's busy time and idle share. Then the hand-off: `training.run`
+   exports a DeepFMv2 on the card, and the serving scorer ranks a wave
+   with the export.
+6. summary: one {"kernels": [...]} line, then the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -49,6 +61,9 @@ L2_BYTES = 50 * 2 ** 20
 #: The serving path's launch shapes: 8 requests x 800 candidates padded
 #: to 8192 rows per wave; DeepFMv2 5 fields of 64, DIN T=5, D=10, H=32.
 WAVE_ROWS = 8192
+#: The training phase's batch (bench.py's) and steps per epoch.
+TRAIN_BATCH = 65536
+TRAIN_STEPS = 8
 #: Users whose ranked requests phase 4 sends (cycled), ranked requests per
 #: model, and how many run at once.
 RANKED_USERS = 64
@@ -159,6 +174,13 @@ def check_fm_cross(shape, dtype, iters):
     return row
 
 
+def live_counts(hist):
+    """(live steps, rows with a live step) of a DIN history [B, T, D]: a
+    step is live when its row has a non-zero element."""
+    live = (hist != 0).any(dim=-1)
+    return int(live.sum().item()), int(live.any(dim=-1).sum().item())
+
+
 def check_din_attention(b, t, d, h, iters):
     import torch
 
@@ -188,9 +210,10 @@ def check_din_attention(b, t, d, h, iters):
     # The candidate's share c @ (wc-wa) + b1 is one [D, H] product per
     # row; each step adds h @ (wa+wb) + (h*c) @ wd, H for the second
     # layer. An all-zero step gets weight 0 whatever the unit computes, so
-    # the work this data needs is the step part over the non-zero steps.
-    live_steps = int((hist != 0).any(dim=-1).sum().item())
-    flops = 2 * (live_steps * (2 * d * h + h) + b * d * h)
+    # the work this data needs is the step part over the non-zero steps,
+    # and the row part over the rows with one.
+    live_steps, live_rows = live_counts(hist)
+    flops = 2 * (live_steps * (2 * d * h + h) + live_rows * d * h)
     t_bound, by = bound(nbytes, flops)
     nxt = cycling((hist, cand), (b * t * d + b * d) * 4)
     weights = args[2:]
@@ -203,6 +226,272 @@ def check_din_attention(b, t, d, h, iters):
            "plain_device_ms": device_ms(lambda: din_attention_plain(*nxt(), *weights), iters)}
     log(f"[kernels] din_attention {json.dumps(row)}")
     return row
+
+
+def fm_bwd_tolerance(x, g, ref):
+    """Per element of dx = 2 g (s - x_f), what two correct evaluations may
+    differ by: float32 roundings of s and of the products, a few float32
+    ulps of the terms summed (2^-20 * 2|g| * sum_f |x_f|); in bfloat16
+    also one rounding of dx, one bf16 ulp (2^-7 |dx|). A sum s kept in
+    bfloat16 is off by bf16 ulps of |s| and fails it
+    (`fm_cross_bwd_bf16_sum`)."""
+    import torch
+
+    tol = 2.0 ** -20 * 2 * g.float().abs()[:, None, :] * x.float().abs().sum(1, keepdim=True)
+    if x.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    return tol
+
+
+def fm_cross_bwd_bf16_sum(x, g):
+    """dx with s summed in bfloat16: the precision fault the kernel must
+    not have, to show the tolerance catches it."""
+    s = x[:, 0]
+    for f in range(1, x.shape[1]):
+        s = s + x[:, f]                                   # bf16 + bf16 -> bf16
+    return (2 * g.float()[:, None, :] * (s.float()[:, None, :] - x.float())).to(x.dtype)
+
+
+def check_fm_cross_bwd(shape, dtype, iters):
+    import torch
+
+    from sparrowrecsys_torch.ops.fm import fm_cross_bwd, fm_cross_bwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    go = torch.randn((shape[0], shape[2]), generator=g, device="cuda").to(dtype)
+    out, ref = fm_cross_bwd(x, go), fm_cross_bwd_plain(x, go)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    tol = fm_bwd_tolerance(x, go, ref)
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"fm_cross_bwd {shape} {dtype}: max err {err}, "
+                             f"{int((diff > tol).sum())} elements beyond the tolerance")
+    # The largest share of its own tolerance an element uses.
+    extra = {"err_over_tol_max": (diff / tol.clamp_min(1e-30)).max().item()}
+    if dtype == torch.bfloat16:
+        over = int(((fm_cross_bwd_bf16_sum(x, go).float() - ref.float()).abs() > tol).sum())
+        if over == 0:
+            raise AssertionError("fm_cross_bwd: the tolerance passes a sum kept in bfloat16")
+        extra["bf16_sum_elements_beyond_tol"] = over
+    del diff, tol
+    b, f, d = shape
+    size = x.element_size()
+    # Bytes: read x and g, write dx. Operations: F adds per column for s,
+    # then a subtract and a multiply per element (2g once per column).
+    nbytes, flops = (2 * b * f * d + b * d) * size, 3 * b * f * d + b * d
+    t_bound, by = bound(nbytes, flops)
+    nxt = cycling((x, go), (x.numel() + go.numel()) * size)
+    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, **extra,
+           "ms": timed(lambda: fm_cross_bwd(*nxt()), iters),
+           "plain_ms": timed(lambda: fm_cross_bwd_plain(*nxt()), iters),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+           "device_ms": device_ms(lambda: fm_cross_bwd(*nxt()), iters, "fm_cross_bwd_kernel"),
+           "plain_device_ms": device_ms(lambda: fm_cross_bwd_plain(*nxt()), iters)}
+    log(f"[kernels] fm_cross_bwd {json.dumps(row)}")
+    return row
+
+
+def unit_preactivations(hist, cand, w1, b1):
+    """The DIN unit's pre-activations [B, T, H]: [h, c, h*c] @ the folded
+    weight + b1, as the plain version computes them."""
+    import torch
+
+    from sparrowrecsys_torch.ops.attention import _fold
+
+    ce = cand[:, None, :].expand_as(hist)
+    return torch.cat([hist, ce, hist * ce], -1) @ _fold(w1, hist.shape[-1]) + b1
+
+
+def din_bwd_flops(d, h, live_steps, live_rows):
+    """Operations of the DIN unit's backward for this data, each multiply-
+    add counted once as two operations. Per live step: the recompute
+    (2*D*H + H), dh through the folded weight's wa+wb and wd blocks
+    (2*D*H), and the weight gradients dk0 = h^T dapre, dk2 = (h*c)^T dapre
+    (2*D*H), db1, dalpha, dw2 (3*H). Per row with a live step, on
+    sum_t dapre_t (the candidate's terms see the step only through dapre):
+    the candidate term of the recompute, dc's (wc-wa) dapre and
+    dk1 = c^T dapre (D*H each). A masked step needs none of it:
+    2 * (live_steps * (6*D*H + 4*H) + live_rows * 3*D*H)."""
+    return 2 * (live_steps * (6 * d * h + 4 * h) + live_rows * 3 * d * h)
+
+
+def check_din_attention_bwd(b, t, d, h, iters):
+    import torch
+
+    from sparrowrecsys_torch.ops.attention import din_attention_bwd, din_attention_bwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    hist = torch.randn(b, t, d, generator=g, device="cuda")
+    pad = torch.rand(b, t, 1, generator=g, device="cuda") < 0.3
+    hist = hist.masked_fill(pad, 0.0).contiguous()
+    cand = torch.randn(b, d, generator=g, device="cuda")
+    w1 = torch.randn(4 * d, h, generator=g, device="cuda") / (4 * d) ** 0.5
+    b1 = torch.randn(h, generator=g, device="cuda") * 0.1
+    alpha = torch.randn(h, generator=g, device="cuda") * 0.1
+    w2 = torch.randn(h, 1, generator=g, device="cuda") / h ** 0.5
+    b2 = torch.randn(1, generator=g, device="cuda") * 0.1
+    go = torch.randn(b, d, generator=g, device="cuda")
+    weights = (w1, b1, alpha, w2, b2)
+    got = din_attention_bwd(hist, cand, *weights, go)
+    ref = din_attention_bwd_plain(hist, cand, *weights, go)
+    again = din_attention_bwd(hist, cand, *weights, go)
+    torch.cuda.synchronize()
+    # The PReLU's kink: where a pre-activation lies within rounding of 0
+    # (|a| < 1e-3; the two sums differ by about 1e-5 at D=128), the kernel
+    # and cuBLAS may take different branches, and that step's dh (and its
+    # row's dc) differ by (1 - alpha) * da * w, a true discontinuity of
+    # the gradient and not an error. Those steps and rows are left out of
+    # the dh and dc comparison and counted; the weight gradients, sums
+    # over every step, are compared whole.
+    kink = (unit_preactivations(hist, cand, w1, b1).abs() < 1e-3).any(-1) \
+        & (hist != 0).any(-1)                                         # [B, T]
+    keep = {"dh": ~kink[..., None], "dc": ~kink.any(-1, keepdim=True)}
+    errs = {}
+    for name, x, r, y in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref, again):
+        # float32 sums over B*T in another order than cuBLAS: 1e-4
+        # relative and 1e-4 of the gradient's scale absolute.
+        if name in keep:
+            x, r, y = (torch.where(keep[name], v, torch.zeros_like(v)) for v in (x, r, y))
+        scale = max(r.abs().max().item(), 1.0)
+        errs[name] = (x - r).abs().max().item()
+        if not torch.allclose(x, r, rtol=1e-4, atol=1e-4 * scale):
+            raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: max err {errs[name]}")
+        if not torch.equal(x, y):
+            raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: two runs differ")
+    kink_steps = int(kink.sum().item())
+    live_steps, live_rows = live_counts(hist)
+    flops = din_bwd_flops(d, h, live_steps, live_rows)
+    n_w = 4 * d * h + 3 * h + 1
+    nbytes = (2 * (b * t * d + b * d) + b * d + 2 * n_w) * 4
+    t_bound, by = bound(nbytes, flops)
+    nxt = cycling((hist, cand, go), (b * t * d + 2 * b * d) * 4)
+
+    def call(fn):
+        hh, cc, gg = nxt()
+        return fn(hh, cc, *weights, gg)
+
+    row = {"shape": [b, t, d, h], "dtype": "float32", "max_abs_err": max(errs.values()),
+           "errs": errs, "deterministic": True, "live_steps": live_steps,
+           "live_rows": live_rows, "kink_steps_left_out": kink_steps,
+           "flops": flops,
+           "ms": timed(lambda: call(din_attention_bwd), iters),
+           "plain_ms": timed(lambda: call(din_attention_bwd_plain), iters),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+           "device_ms": device_ms(lambda: call(din_attention_bwd), iters, "din_attention_bwd"),
+           "plain_device_ms": device_ms(lambda: call(din_attention_bwd_plain), iters)}
+    log(f"[kernels] din_attention_bwd {json.dumps(row)}")
+    return row
+
+
+def check_rows(kind, table, ids, iters, label):
+    """rows_gather or rows_write on `table` and `ids` against the plain
+    version (a row copy is exact: bit-equal), timed beside the bound and
+    one PyTorch call computing the same function (`index_select`, or
+    `index_copy_` on the in-range ids), which the port never calls."""
+    import torch
+
+    from sparrowrecsys_torch.ops.rowio import (
+        rows_gather,
+        rows_gather_plain,
+        rows_write,
+        rows_write_plain,
+    )
+
+    u, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
+    valid = (ids >= 0) & (ids < table.shape[0])
+    if kind == "rows_gather":
+        out, ref = rows_gather(table, ids), rows_gather_plain(table, ids)
+        ok = torch.equal(out, ref)
+        del out, ref
+        # Bytes: read each distinct row once (the trainer's drop slots are
+        # all clamped to row V-1) and the U ids, write U rows.
+        n_read = int(torch.unique(ids).numel())
+        nbytes = (n_read + u) * row_bytes + 4 * u
+        long_ids = ids.long()
+        nxt = cycling((table, ids), table.numel() * table.element_size() + 4 * u)
+
+        def kernel():
+            t, i = nxt()
+            return rows_gather(t, i)
+
+        def plain():
+            t, i = nxt()
+            return rows_gather_plain(t, i)
+
+        def library():
+            t, _ = nxt()
+            return torch.index_select(t, 0, long_ids)
+
+        marker = "rows_gather_kernel"
+    else:
+        rows = torch.randn(u, table.shape[1], device="cuda").to(table.dtype)
+        out, ref = rows_write(table.clone(), ids, rows), rows_write_plain(table.clone(), ids, rows)
+        ok = torch.equal(out, ref)
+        del out, ref
+        n_read = int(valid.sum().item())
+        # Bytes: read the in-range rows and every id, write the in-range rows.
+        nbytes = 2 * n_read * row_bytes + 4 * u
+        valid_ids, valid_rows = ids[valid].long(), rows[valid]
+        nxt = cycling((rows,), rows.numel() * rows.element_size())
+
+        def kernel():
+            return rows_write(table, ids, *nxt())
+
+        def plain():
+            return rows_write_plain(table, ids, *nxt())
+
+        def library():
+            nxt()
+            return table.index_copy_(0, valid_ids, valid_rows)
+
+        marker = "rows_write_kernel"
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"{kind} {label}: differs from its plain version")
+    t_bound, by = bound(nbytes, 0)
+    row = {"shape": list(table.shape), "ids": u, "in_range": int(valid.sum().item()),
+           "rows_read": n_read,
+           "dtype": str(table.dtype).replace("torch.", ""), "label": label, "max_abs_err": 0.0,
+           "ms": timed(kernel, iters), "plain_ms": timed(plain, iters),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": timed(library, iters),
+           "device_ms": device_ms(kernel, iters, marker),
+           "plain_device_ms": device_ms(plain, iters)}
+    log(f"[kernels] {kind} {json.dumps(row)}")
+    return row
+
+
+def rows_cases(iters_small, iters_large):
+    """Both row kernels at the trainer's shape (DeepFMv2's fused user
+    buffer [30001, 30] f32 with the touched ids of one synthetic batch of
+    65536, as the lazy row-Adam pads and routes them) and at the shapes of
+    KERNELS.md ([2^21, 128] and [2^21, 384] f32, and [2^21, 128] bf16,
+    65536 distinct sorted ids)."""
+    import torch
+
+    from sparrowrecsys_torch.data.synthetic import synthetic_ctr_dataset
+    from sparrowrecsys_torch.training.row_optim import _touched_rows
+
+    out = {"rows_gather": [], "rows_write": []}
+    users = torch.from_numpy(synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features["userId"])
+    uids, safe = _touched_rows(users.cuda(), 30001)
+    buf = torch.randn(30001, 30, device="cuda")
+    out["rows_gather"].append(check_rows("rows_gather", buf, safe, iters_small, "train"))
+    out["rows_write"].append(check_rows("rows_write", buf, uids, iters_small, "train"))
+    del buf
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for width, dtype in ((128, torch.float32), (384, torch.float32), (128, torch.bfloat16)):
+        v = 2 ** 21
+        table = torch.randn(v, width, generator=g, device="cuda").to(dtype)
+        ids = torch.randperm(v, generator=g, device="cuda")[:TRAIN_BATCH].sort().values
+        ids = ids.to(torch.int32)
+        for kind in out:
+            out[kind].append(check_rows(kind, table, ids, iters_large, "kernels_md"))
+        del table
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- phase 4 -----------------------------------------------------------------
@@ -391,6 +680,334 @@ def profile_waves(scorer, wave_users, iters: int):
             "top_device_ms": [[name[:80], v / 1e3 / iters] for name, v in top]}
 
 
+# ---- phase 5 -----------------------------------------------------------------
+
+def counters():
+    """The kernels' wrappers (each carries its launch count), by name."""
+    from sparrowrecsys_torch.ops import attention, fm, rowio
+
+    return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
+            "din_attention": attention.din_attention,
+            "din_attention_bwd": attention.din_attention_bwd,
+            "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+#: Per model: the training data, the tables that take the lazy row-Adam,
+#: the kernels its path must launch, and the fit's learning rate. Every
+#: model at its shipped widths (D=10; DeepFMv2 fields of 64, deep 32/16;
+#: DIN T=5, H=32). DIN's only signal is sequential (the candidate against
+#: the history) and 16 steps barely reach it: its last AUC was 0.505 at
+#: the default 1e-3 and 0.509 at 1e-2 (this script on an H100 80GB HBM3
+#: at 700 W), so its fit takes 1e-2. An AUC that near 0.5 cannot tell a
+#: right backward from a wrong one; the fit's check against the same fit
+#: on the CPU (`fit_parity`) does.
+TRAIN_MODELS = {
+    "deepfm": ("synthetic_ctr_dataset", None, (), 1e-3),
+    "deepfm_v2": ("synthetic_ctr_dataset",
+                  {"emb_userId": ("userId",), "emb_movieId": ("movieId",)},
+                  ("fm_cross", "fm_cross_bwd", "rows_gather", "rows_write"), 1e-3),
+    "din": ("synthetic_sequence_ctr_dataset", None, ("din_attention", "din_attention_bwd"),
+            1e-2),
+}
+
+
+def _fresh(trainer, params):
+    """(params in the fit form, optimizer state) from a parameter dict."""
+    p = {k: v.clone() for k, v in params.items()}
+    opt = trainer.init_opt_state(p)
+    if trainer.sparse_tables:
+        p = trainer._dense_view(p)
+    return p, opt
+
+
+def _batch(ds, device, rows=None):
+    import torch
+
+    sl = slice(0, rows or TRAIN_BATCH)
+    feats = {k: torch.from_numpy(v[sl]).to(device) for k, v in ds.features.items()}
+    labels = torch.from_numpy(ds.labels[sl]).to(device)
+    return feats, labels, torch.ones_like(labels)
+
+
+#: The Dense layers a ReLU (DeepFM, DeepFMv2) or PReLU (DIN) follows.
+KINKED_LAYERS = ("deep1", "deep2", "fc1", "fc2")
+
+
+def kink_rows(trainer, params, feats, delta: float = 1e-5):
+    """[B] bool: the batch rows whose forward on `trainer` (the CPU) puts a
+    ReLU/PReLU input within `delta` times that tensor's largest magnitude
+    of 0: the outputs of the Dense layers an activation follows
+    (`KINKED_LAYERS`), and DIN's attention-unit pre-activations on live
+    steps. There, two float32 evaluations may take different branches,
+    and the row's gradient jumps by the whole branch difference: a true
+    kink, not an error. (Two float32 sums of these widths differ by about
+    1e-7 of their largest term; delta leaves 100x margin.)"""
+    import torch
+
+    import sparrowrecsys_torch.models.din as din_module
+
+    outs, units = [], []
+    hooks = [m.register_forward_hook(lambda _m, _i, o: outs.append(o))
+             for n, m in trainer.model.named_modules() if n in KINKED_LAYERS]
+    real = din_module.din_attention
+
+    def recording(hist, cand, w1, b1, *rest):
+        units.append((hist, cand, w1, b1))
+        return real(hist, cand, w1, b1, *rest)
+
+    din_module.din_attention = recording
+    try:
+        p, opt = params
+        with torch.no_grad():
+            trainer._forward(trainer._diff_leaves(p, opt), feats)
+    finally:
+        din_module.din_attention = real
+        for hk in hooks:
+            hk.remove()
+    kink = torch.zeros(next(iter(feats.values())).shape[0], dtype=torch.bool)
+    for z in outs:
+        z = z.detach().abs()
+        kink |= (z < delta * z.max()).reshape(kink.shape[0], -1).any(-1)
+    with torch.no_grad():
+        for hist, cand, w1, b1 in units:
+            pre = unit_preactivations(hist, cand, w1, b1).abs()
+            live = (hist != 0).any(-1)
+            kink |= ((pre < delta * pre.max()).any(-1) & live).any(-1)
+    return kink
+
+
+def one_step_parity(name, tables, ds, params, devices=("cuda", "cpu")):
+    """Loss and every gradient of one batch on the card against the same
+    weights and batch on the CPU (plain versions there). Rows at a
+    ReLU/PReLU kink (`kink_rows`) are masked out of the loss on both."""
+    import torch
+
+    from sparrowrecsys_torch.config import TrainConfig
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.training.loop import Trainer
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH)
+    cpu = Trainer(build_model(name), cfg, sparse_tables=tables, device=devices[-1])
+    cpu_feats, _, _ = _batch(ds, devices[-1])
+    cpu_params = {k: v.to(devices[-1]) for k, v in params.items()}
+    keep = (~kink_rows(cpu, _fresh(cpu, cpu_params), cpu_feats)).float()
+    out = []
+    for dev in devices:
+        trainer = Trainer(build_model(name), cfg, sparse_tables=tables, device=dev)
+        p, opt = _fresh(trainer, {k: v.to(dev) for k, v in params.items()})
+        feats, labels, _ = _batch(ds, dev)
+        _, loss, _, grads = trainer.loss_and_grads(p, opt, feats, labels, keep.to(dev))
+        out.append((loss.item(), {k: v.float().cpu() for k, v in grads.items()}))
+    (loss, grads), (ref_loss, ref_grads) = out
+    # float32 with other summation orders (cuBLAS, the kernels, the
+    # embedding backward's sums over 65536 rows): loss 1e-5 relative;
+    # each gradient 1e-4 of its own scale (max |g| on the CPU).
+    report = {"loss": loss, "cpu_loss": ref_loss, "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+              "kink_rows_left_out": int((keep == 0).sum().item())}
+    worst = {}
+    for k, r in ref_grads.items():
+        scale = r.abs().max().item()
+        worst[k] = (grads[k] - r).abs().max().item() / max(scale, 1e-30)
+    report["grad_err_over_scale_max"] = max(worst.values())
+    report["grad_worst"] = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[train] {name} one step, card vs cpu: {json.dumps(report)}")
+    if not report["loss_rel_err"] <= 1e-5:
+        raise AssertionError(f"{name}: loss {loss} vs cpu {ref_loss}")
+    bad = {k: v for k, v in worst.items() if not v <= 1e-4}
+    if bad:
+        raise AssertionError(f"{name}: gradients beyond 1e-4 of scale: {bad}")
+    return report
+
+
+#: The card's fit against the CPU's, from the same weights and row order:
+#: float32 noise (2e-6 of each gradient's scale a step) carried through
+#: 16 Adam steps, where an element whose gradient sits at rounding noise
+#: may step the other way (Adam's first steps are about -lr * sign(g)).
+#: Per epoch: loss within 1e-3 relative, AUC within 1e-3; per parameter
+#: tensor, the distance between the two fits' results within 1e-2 of the
+#: distance the CPU fit moved it. A backward that drops or garbles a
+#: gradient moves its parameters by a different distance altogether.
+FIT_LOSS_RTOL, FIT_AUC_ATOL, FIT_DRIFT_TOL = 1e-3, 1e-3, 1e-2
+
+
+def fit_parity(name, tables, ds, params, cfg, result):
+    """The same fit on the CPU (plain versions there), held against the
+    card's `result`: per-epoch loss and AUC, and each parameter's drift
+    from the CPU's result over the distance the CPU moved it. Counts the
+    elements that differ by more than one Adam step (lr), as flips."""
+    import torch
+
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.training.loop import Trainer
+
+    t0 = time.perf_counter()
+    cpu = Trainer(build_model(name), cfg, sparse_tables=tables, device="cpu")
+    ref = cpu.fit(ds, params={k: v.cpu() for k, v in params.items()}, verbose=False)
+    report = {"cpu_fit_s": time.perf_counter() - t0, "loss_rel_err": [], "auc_err": []}
+    for got, want in zip(result.history, ref.history):
+        report["loss_rel_err"].append(abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        report["auc_err"].append(abs(got["roc_auc"] - want["roc_auc"]))
+    drift, flips = {}, 0
+    for k, want in ref.params.items():
+        got, init = result.params[k].float().cpu(), params[k].float().cpu()
+        gap, moved = (got - want).norm().item(), (want - init).norm().item()
+        drift[k] = gap / moved if moved > 0 else (0.0 if gap == 0 else math.inf)
+        flips += int(((got - want).abs() > cfg.learning_rate).sum())
+    report["drift_max"] = max(drift.values())
+    report["drift_worst"] = sorted(drift.items(), key=lambda kv: -kv[1])[:3]
+    report["elements_beyond_one_step"] = flips
+    log(f"[train] {name} fit, card vs cpu: {json.dumps(report)}")
+    bad = [f"epoch {e}: loss rel err {le}, auc err {ae}" for e, (le, ae)
+           in enumerate(zip(report["loss_rel_err"], report["auc_err"]))
+           if not (le <= FIT_LOSS_RTOL and ae <= FIT_AUC_ATOL)]
+    bad += [f"{k}: drift {v}" for k, v in drift.items() if not v <= FIT_DRIFT_TOL]
+    if len(result.history) != len(ref.history) or bad:
+        raise AssertionError(f"{name}: the card's fit departs from the CPU's: {bad}")
+    return report
+
+
+def step_breakdown(trainer, params, ds, iters: int = 10):
+    """One step's forward, backward and optimizer ms (CUDA events, back to
+    back), and the device's busy time and idle share over `iters` whole
+    steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparrowrecsys_torch.ops import metrics as M
+    from sparrowrecsys_torch.training import loop
+
+    p, opt = _fresh(trainer, params)
+    feats, labels, mask = _batch(ds, trainer.device)
+
+    def forward():
+        logits = trainer._forward(trainer._diff_leaves(p, opt), feats)
+        return loop._default_loss(logits, labels, mask)
+
+    _, _, _, grads = trainer.loss_and_grads(p, opt, feats, labels, mask)
+    fwd = timed(forward, iters)
+    fwd_bwd = timed(lambda: trainer.loss_and_grads(p, opt, feats, labels, mask), iters)
+    optim = timed(lambda: trainer.apply_grads(p, opt, grads, feats), iters)
+    mstate = M.init_metrics(trainer.device)
+    import torch
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            p, opt, mstate = trainer._train_step(p, opt, mstate, feats, labels, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    us = device_us(prof)
+    ops = us.pop(None)
+    busy_ms = sum(us.values()) / 1e3 / iters
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    return {"forward_ms": fwd, "backward_ms": fwd_bwd - fwd, "optimizer_ms": optim,
+            "step_ms": fwd_bwd + optim, "profiled_step_ms": wall_ms,
+            "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_ops_per_step": ops / iters,
+            "port_kernels_ms": {k: sum(v for n, v in us.items() if f"{k}_kernel" in n)
+                                / 1e3 / iters for k in counters()},
+            "top_device_ms": [[n[:80], v / 1e3 / iters] for n, v in top]}
+
+
+def training_phase():
+    """Per model at the shipped widths and batch 65536: one step card vs
+    CPU; a 2-epoch fit of 8 steps with the launch counters read around
+    it; one step's breakdown. Returns {model: counts} of the fits."""
+    import numpy as np
+
+    from sparrowrecsys_torch.config import TrainConfig
+    from sparrowrecsys_torch.data import synthetic
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.training.loop import Trainer
+
+    counts = {}
+    for name, (maker, tables, path_kernels, lr) in TRAIN_MODELS.items():
+        t0 = time.perf_counter()
+        ds = getattr(synthetic, maker)(TRAIN_BATCH * TRAIN_STEPS, seed=20)
+        log(f"[train] {name}: {len(ds)} synthetic rows in {time.perf_counter() - t0:.3f} s")
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, learning_rate=lr)
+        trainer = Trainer(build_model(name), cfg, sparse_tables=tables)
+        params = trainer.init_params()
+        one_step_parity(name, tables, ds, params)
+
+        reset_counts()
+        result = trainer.fit(ds, params=params, verbose=True)
+        counts[name] = read_counts()
+        hist = result.history
+        log(f"[train] {name} fit: {json.dumps(hist)}; {result.examples_per_sec:.1f} "
+            f"examples/s over the steady epoch; launches {json.dumps(counts[name])}")
+        if not hist[-1]["loss"] < hist[0]["loss"]:
+            raise AssertionError(f"{name}: the loss did not fall: {hist}")
+        if not hist[-1]["roc_auc"] > 0.5:
+            raise AssertionError(f"{name}: last epoch's AUC {hist[-1]['roc_auc']} <= 0.5")
+        if not all(np.isfinite(v.float().cpu().numpy()).all() for v in result.params.values()):
+            raise AssertionError(f"{name}: non-finite parameters after the fit")
+        for k in path_kernels:
+            if counts[name][k] <= 0:
+                raise AssertionError(f"{name}: {k} was not launched by the fit")
+        fit_parity(name, tables, ds, params, cfg, result)
+        breakdown = step_breakdown(trainer, result.params, ds)
+        log(f"[train] {name} step breakdown: {json.dumps(breakdown)}")
+    return counts
+
+
+def hand_off(device: str = "cuda"):
+    """`training.run` on the card exports a DeepFMv2; the port's reader
+    loads it and the serving scorer ranks one wave with it."""
+    import tempfile
+
+    import numpy as np
+
+    from sparrowrecsys_torch.config import DataConfig
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.serving.assembler import FeatureAssembler
+    from sparrowrecsys_torch.serving.feature_store import FeatureStore
+    from sparrowrecsys_torch.serving.rankers import ModelScorer
+    from sparrowrecsys_torch.serving.server import load_catalog
+    from sparrowrecsys_torch.training.checkpoint import load_latest, params_from_flax
+
+    data = DataConfig(data_root=os.path.join(REPO, "data"))
+    dm = load_catalog(data)
+    asm = FeatureAssembler(FeatureStore.load(data.path("feature_store.json")), dm)
+    with open(data.path("ratings.csv")) as f:
+        next(f)
+        users = list(dict.fromkeys(int(line.split(",")[0]) for line in f))
+
+    scratch = os.path.join(REPO, "sparrowrecsys_torch", "_build")  # git-ignored
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        cmd = [sys.executable, "-m", "sparrowrecsys_torch.training.run", "--model", "deepfm_v2",
+               "--epochs", "1", "--export", tmp] + (["--cpu"] if device == "cpu" else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        if proc.returncode != 0:
+            raise AssertionError(f"training.run failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        log(f"[handoff] training.run in {time.perf_counter() - t0:.3f} s: "
+            + " | ".join(line for line in proc.stdout.splitlines() if "epoch" in line or "test" in line))
+        tree, version, meta = load_latest(tmp)
+        model = build_model("deepfm_v2")
+        model.load_state_dict(params_from_flax(tree, model))
+        scorer = ModelScorer.from_checkpoint(build_model("deepfm_v2"), tmp, asm, device=device)
+        cand_ids = [m.movie_id for m in dm.get_movies(800, "rating")]
+        k = 8
+        scorer.prepare_wave(cand_ids, k)
+        scores = scorer.score_wave(users[:k])
+        if scores.shape != (k, len(cand_ids)) or not np.isfinite(scores).all():
+            raise AssertionError(f"exported deepfm_v2: wave scores {scores.shape}")
+        log(f"[handoff] export v{version} ({meta.get('model')}) scored a [{k} x {len(cand_ids)}] "
+            f"wave on {device}: mean {scores.mean():.4f}, std {scores.std():.4f}")
+
+
 def main() -> int:
     try:
         import torch
@@ -437,17 +1054,35 @@ def main() -> int:
         check_din_attention(WAVE_ROWS, 5, 10, 32, 200),
         check_din_attention(65536, 64, 128, 32, 10),
     ]
+    fm_bwd_rows = [
+        check_fm_cross_bwd((TRAIN_BATCH, 5, 64), torch.float32, 100),
+        check_fm_cross_bwd((262144, 5, 128), torch.float32, 20),
+        check_fm_cross_bwd((262144, 5, 128), torch.bfloat16, 20),
+    ]
+    din_bwd_rows = [
+        check_din_attention_bwd(TRAIN_BATCH, 5, 10, 32, 20),
+        check_din_attention_bwd(65536, 64, 128, 32, 3),
+    ]
+    row_rows = rows_cases(100, 20)
     torch.cuda.empty_cache()
 
     # 4. serving end to end
-    counts, _, _ = serving_phase()
+    serving_counts, _, _ = serving_phase()
 
-    # 5. summary
+    # 5. training end to end, then the hand-off to serving
+    train_counts = training_phase()
+    torch.cuda.empty_cache()
+    hand_off()
+    trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
+    counts = dict(trained, fm_cross=serving_counts["fm_cross"],
+                  din_attention=serving_counts["din_attention"])
+
+    # 6. summary
     def entry(name, route, source, replaces, rows):
         main_row = rows[0]
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": counts[name],
+            "launches": counts[name], "launches_training": trained[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -461,6 +1096,14 @@ def main() -> int:
               "sparrowrecsys_tpu/ops/fm.py:41", fm_rows),
         entry("din_attention", "cuda", "sparrowrecsys_torch/csrc/din_attention.cu",
               "sparrowrecsys_tpu/ops/attention.py:73", din_rows),
+        entry("fm_cross_bwd", "cuda", "sparrowrecsys_torch/csrc/fm_cross.cu",
+              "sparrowrecsys_tpu/ops/fm.py:62", fm_bwd_rows),
+        entry("din_attention_bwd", "cuda", "sparrowrecsys_torch/csrc/din_attention.cu",
+              "sparrowrecsys_tpu/ops/attention.py:119", din_bwd_rows),
+        entry("rows_gather", "cuda", "sparrowrecsys_torch/csrc/rowio.cu",
+              "sparrowrecsys_tpu/ops/rowio.py:103", row_rows["rows_gather"]),
+        entry("rows_write", "cuda", "sparrowrecsys_torch/csrc/rowio.cu",
+              "sparrowrecsys_tpu/ops/rowio.py:172", row_rows["rows_write"]),
     ]}
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -42,6 +42,9 @@ def _lecun_normal(fan_in: int, fan_out: int) -> nn.Parameter:
 
 
 class DIN(nn.Module):
+    #: [in, out] kernels that are raw parameters, not `nn.Linear` weights.
+    RAW_KERNELS = ("att_w1", "att_w2")
+
     def __init__(
         self,
         dim: int = EMBEDDING_DIM,

@@ -6,13 +6,15 @@ for OOV, int32 ids with 0 as the history pad, float32 numerics.
 
 Parameter names are the flax ones (`table`, `w`, `alpha`, and Dense
 `kernel`/`bias` as `nn.Linear` `weight`/`bias`), so an exported flax
-tree loads through `training.checkpoint.params_from_flax`. Initial
-values follow the JAX package's initialisers in kind; tests and serving
-load real weights.
+tree loads through `training.checkpoint.params_from_flax`. A module's
+own initial values are PyTorch's; `flax_init` draws a parameter dict from
+the distributions the JAX package's initialisers use, which is what the
+Trainer trains from.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparrowrecsys_torch.config import EMBEDDING_DIM, GENRE_VOCAB
-from sparrowrecsys_torch.ops.embedding import embed_lookup
+from sparrowrecsys_torch.ops.embedding import embed_lookup, uniform_embed_init
 
 NUMERIC_COLS = (
     "releaseYear", "movieRatingCount", "movieAvgRating", "movieRatingStddev",
@@ -144,3 +146,41 @@ def project_fields(xs: Sequence[torch.Tensor], layers: Sequence[nn.Linear]) -> t
     applying each layer on its own gives the same numbers. Each
     `LinParams` of the JAX model is an `nn.Linear` here."""
     return torch.stack([dense(layer, x) for x, layer in zip(xs, layers)], dim=1)
+
+
+#: flax's `lecun_normal`: a normal truncated to two standard deviations,
+#: scaled by this so the truncated draw has variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator, device=None) -> torch.Tensor:
+    """flax `nn.initializers.lecun_normal()`: truncated normal in
+    [-2, 2] standard units, stddev sqrt(1 / fan_in) / 0.8796."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).to(device)
+
+
+def flax_init(model: nn.Module, generator: torch.Generator,
+              device=None) -> Dict[str, torch.Tensor]:
+    """A fresh parameter dict (state_dict names) with the distributions of
+    the JAX package's initialisers: embedding tables uniform(-0.05, 0.05);
+    Dense kernels (an `nn.Linear` weight, or a raw [in, out] kernel the
+    model lists in `RAW_KERNELS`, such as DIN's `att_w1`) lecun-normal
+    over their fan-in; biases, PReLU slopes
+    and first-order id weights zeros, as flax's `Dense`, `PReLU` and
+    `IdBias` have them."""
+    linear = {name for name, m in model.named_modules() if isinstance(m, nn.Linear)}
+    table = uniform_embed_init()
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in model.named_parameters():
+        mod, _, leaf = name.rpartition(".")
+        if mod in linear and leaf == "weight":
+            out[name] = lecun_normal(p.shape, p.shape[1], generator, device)
+        elif leaf == "table":
+            out[name] = table(p.shape, generator, device)
+        elif name in getattr(model, "RAW_KERNELS", ()):
+            out[name] = lecun_normal(p.shape, p.shape[0], generator, device)
+        else:
+            out[name] = torch.zeros(p.shape, dtype=torch.float32, device=device)
+    return out

@@ -1,4 +1,4 @@
-"""Masked embedding lookup, forward only.
+"""Masked embedding lookup and the embedding tables' initialiser.
 
 The port of `sparrowrecsys_tpu/ops/embedding.py::embed_lookup` (:71-102).
 Any id outside `[lo, V)` gives a zero row, where `lo` is 1 with
@@ -26,3 +26,16 @@ def embed_lookup(
     lo = 1 if mask_zero else 0
     valid = (ids >= lo) & (ids < v)
     return torch.where(valid.unsqueeze(-1), out, out.new_zeros(()))
+
+
+def uniform_embed_init(scale: float = 0.05):
+    """The port of `uniform_embed_init` (`ops/embedding.py:232`): Keras's
+    Embedding initialiser, uniform(-scale, scale). Returns
+    `init(shape, generator, device) -> float32 tensor`. The values cannot
+    match JAX's draws; the distribution does."""
+
+    def init(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return ((2 * u - 1) * scale).to(device)
+
+    return init

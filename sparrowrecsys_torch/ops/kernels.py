@@ -43,8 +43,20 @@ SIGNATURES = {
     # x, out, B, F, D, device, stream
     "fm_cross_f32": [_P, _P, _I64, _I, _I, _I, _P],
     "fm_cross_bf16": [_P, _P, _I64, _I, _I, _I, _P],
+    # x, g, dx, B, F, D, device, stream
+    "fm_cross_bwd_f32": [_P, _P, _P, _I64, _I, _I, _I, _P],
+    "fm_cross_bwd_bf16": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # hist, cand, w1, b1, alpha, w2, b2, out, B, T, D, H, device, stream
     "din_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    # hist, cand, g, B, T, D, H, device, grid (out)
+    "din_attention_bwd_grid": [_P, _P, _P, _I64, _I, _I, _I, _I, ctypes.POINTER(_I64)],
+    # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, scratch, grid,
+    # dw1, db1, dalpha, dw2, db2, B, T, D, H, device, stream
+    "din_attention_bwd_f32": [_P] * 11 + [_I64] + [_P] * 5 + [_I64, _I, _I, _I, _I, _P],
+    # table, ids, out, V, U, row bytes, device, stream
+    "rows_gather": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
+    # table, ids, rows, V, U, row bytes, device, stream
+    "rows_write": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,16 @@
-"""Versioned model checkpoints, load side: `<dir>/<NNN>/params.msgpack`.
+"""Versioned model checkpoints: `<dir>/<NNN>/params.msgpack` + `meta.json`.
 
-The port of `sparrowrecsys_tpu/training/checkpoint.py:60-108`. The JAX
+The port of `sparrowrecsys_tpu/training/checkpoint.py:26-97`. The JAX
 loader restores into a target tree built by `model.init`; here the file
 is decoded on its own (`msgpack_reader.unpackb`) into a nested dict of
 arrays, and `params_from_flax` maps that dict onto a torch module's
-`state_dict` by name, so no init pass is needed.
+`state_dict` by name, so no init pass is needed. `save` writes a flax
+tree (`params_to_flax` of a port parameter dict) with the pure-Python
+`msgpack_writer.packb`, byte for byte what `flax.serialization.to_bytes`
+writes, so the JAX package loads the port's exports.
+
+Train-state checkpoints (`save_train_state`, `load_latest_train_state`)
+are not ported yet; they are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
@@ -20,6 +27,7 @@ import torch
 from torch import nn
 
 from sparrowrecsys_torch.training.msgpack_reader import unpackb
+from sparrowrecsys_torch.training.msgpack_writer import packb
 
 _VERSION_RE = re.compile(r"^\d{3,}$")
 
@@ -28,6 +36,32 @@ def _versions(model_dir: str):
     if not os.path.isdir(model_dir):
         return []
     return sorted(int(d) for d in os.listdir(model_dir) if _VERSION_RE.match(d))
+
+
+def save(
+    params: Dict[str, Any],
+    model_dir: str,
+    version: Optional[int] = None,
+    meta: Optional[dict] = None,
+    keep: Optional[int] = None,
+) -> str:
+    """Write a flax param tree into the next (or given) numbered version
+    dir: `params.msgpack` first, then `meta.json`, whose presence marks
+    the version complete (`latest_ready_version`). `keep` prunes to the
+    newest N versions (TrainConfig.checkpoint_keep). Returns the dir."""
+    existing = _versions(model_dir)
+    if version is None:
+        version = (existing[-1] + 1) if existing else 1
+    vdir = os.path.join(model_dir, f"{version:03d}")
+    os.makedirs(vdir, exist_ok=True)
+    with open(os.path.join(vdir, "params.msgpack"), "wb") as f:
+        f.write(packb(params))
+    with open(os.path.join(vdir, "meta.json"), "w") as f:
+        json.dump(meta or {}, f)
+    if keep:
+        for v in _versions(model_dir)[:-keep]:
+            shutil.rmtree(os.path.join(model_dir, f"{v:03d}"), ignore_errors=True)
+    return vdir
 
 
 def latest_ready_version(model_dir: str) -> Optional[int]:
@@ -95,7 +129,7 @@ def params_from_flax(tree: Dict[str, Any], model: nn.Module) -> "OrderedDict[str
         if src not in flat:
             raise KeyError(f"flax tree has no {src!r} for {key!r}")
         arr = flat[src]
-        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.asarray(arr))
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.array(arr))
         if transpose:
             t = t.T.contiguous()
         if tuple(t.shape) != tuple(ref.shape):
@@ -109,3 +143,26 @@ def params_from_flax(tree: Dict[str, Any], model: nn.Module) -> "OrderedDict[str
     if extra:
         raise KeyError(f"flax tree has names the model lacks: {extra}")
     return out
+
+
+def params_to_flax(params: Dict[str, torch.Tensor], model: nn.Module) -> Dict[str, Any]:
+    """The inverse of `params_from_flax`: a parameter dict keyed by
+    `state_dict` name -> the flax tree of numpy arrays. `<module>.<param>`
+    becomes `{module: {param: ...}}`; an `nn.Linear` weight [out, in]
+    becomes its Dense `kernel` [in, out]. bfloat16 leaves stay torch
+    tensors (numpy has no bfloat16); `msgpack_writer` packs both."""
+    linear = {name for name, m in model.named_modules() if isinstance(m, nn.Linear)}
+    want = model.state_dict()
+    if set(params) != set(want):
+        raise KeyError(f"params and model differ: {sorted(set(params) ^ set(want))}")
+    tree: Dict[str, Any] = {}
+    for key in want:
+        mod, _, leaf = key.rpartition(".")
+        t = params[key].detach().cpu()
+        if mod in linear and leaf == "weight":
+            leaf, t = "kernel", t.T
+        node = tree
+        for part in mod.split(".") if mod else ():
+            node = node.setdefault(part, {})
+        node[leaf] = t.contiguous() if t.dtype == torch.bfloat16 else t.contiguous().numpy()
+    return tree

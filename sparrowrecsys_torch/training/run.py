@@ -1,0 +1,95 @@
+"""Command-line training: the port of `sparrowrecsys_tpu/training/run.py`.
+
+    python -m sparrowrecsys_torch.training.run --model din --epochs 1 [--cpu]
+
+Loads the bundled samples (or --train/--test CSVs in the reference's
+27-column format), trains DeepFM, DeepFMv2 or DIN on the card (the CPU
+with --cpu), prints loss/accuracy/ROC-AUC/PR-AUC, optionally exports a
+versioned checkpoint the serving plane (either package) loads, and shows
+12 sample predictions like the reference scripts (`EmbeddingMLP.py:101-105`).
+
+Other zoo models raise NotImplementedError, as do --state-dir, --resume
+and --config until the train-state slice lands (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+PORTED = ("deepfm", "deepfm_v2", "din")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="deepfm")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--parity", action="store_true",
+                    help="reference-parity settings (batch=12)")
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--train", default=None, help="trainingSamples.csv path")
+    ap.add_argument("--test", default=None, help="testSamples.csv path")
+    ap.add_argument("--standardize", action="store_true",
+                    help="z-score numerics with train stats (non-parity)")
+    ap.add_argument("--config", default=None, help="not ported yet")
+    ap.add_argument("--data-root", default=None)
+    ap.add_argument("--export", default=None, metavar="DIR",
+                    help="export a versioned checkpoint: DIR/NNN/params.msgpack + meta.json")
+    ap.add_argument("--state-dir", default=None, help="not ported yet")
+    ap.add_argument("--resume", action="store_true", help="not ported yet")
+    ap.add_argument("--cpu", action="store_true", help="train on the CPU instead of cuda")
+    args = ap.parse_args(argv)
+
+    if args.model not in PORTED:
+        raise NotImplementedError(
+            f"training {args.model!r} is not ported yet (ported: {PORTED}); "
+            "it is queued in ROADMAP.md")
+    for flag, value in (("--config", args.config), ("--state-dir", args.state_dir),
+                        ("--resume", args.resume)):
+        if value:
+            raise NotImplementedError(
+                f"{flag} waits for the train-state slice; it is queued in ROADMAP.md")
+
+    from sparrowrecsys_torch.config import DataConfig, TrainConfig
+    from sparrowrecsys_torch.data.dataset import encode_samples, load_samples, standardize
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.training.checkpoint import params_to_flax, save
+    from sparrowrecsys_torch.training.loop import Trainer
+
+    data = DataConfig() if args.data_root is None else DataConfig(data_root=args.data_root)
+    train_ds = encode_samples(load_samples(args.train or data.path("trainingSamples.csv")))
+    test_ds = encode_samples(load_samples(args.test or data.path("testSamples.csv")))
+    if args.standardize:
+        train_ds, test_ds = standardize(train_ds, test_ds)
+    print(f"train={len(train_ds)} test={len(test_ds)} model={args.model}")
+
+    base = TrainConfig()
+    overrides = {"batch_size": args.batch_size or (12 if args.parity else base.batch_size)}
+    if args.epochs is not None:
+        overrides["epochs"] = args.epochs
+    if args.lr is not None:
+        overrides["learning_rate"] = args.lr
+    if args.seed is not None:
+        overrides["seed"] = args.seed
+    cfg = dataclasses.replace(base, **overrides)
+    model = build_model(args.model)
+    trainer = Trainer(model, cfg, device="cpu" if args.cpu else None)
+    result = trainer.fit(train_ds, test=test_ds)
+
+    if args.export:
+        vdir = save(params_to_flax(result.params, model), args.export,
+                    meta={"model": args.model, "metrics": result.eval_metrics},
+                    keep=cfg.checkpoint_keep)
+        print(f"exported checkpoint: {vdir}")
+
+    probs = trainer.predict(result.params, test_ds)[:12]
+    for p, label in zip(probs, test_ds.labels[:12]):
+        print(f"Predicted good rating: {p:.2%}  | Actual rating label: "
+              + ("Good Rating" if label > 0.5 else "Bad Rating"))
+    print(f"throughput: {result.examples_per_sec:.0f} examples/s")
+
+
+if __name__ == "__main__":
+    main()

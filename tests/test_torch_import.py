@@ -1,4 +1,5 @@
-"""The PyTorch port imports nothing of JAX, flax, msgpack or the JAX package."""
+"""The PyTorch port and chip_smoke.py import nothing of JAX, flax, msgpack
+or the JAX package: the card's machine has none of them."""
 
 import os
 import re
@@ -35,12 +36,30 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|msgpack|sparrowrecsys_tpu)\b", re.M
     )
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                with open(path) as fh:
-                    if pattern.search(fh.read()):
-                        offenders.append(os.path.relpath(path, REPO))
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            if pattern.search(fh.read()):
+                offenders.append(os.path.relpath(path, REPO))
+    assert len(paths) > 20
     assert offenders == []
+
+
+def test_chip_smoke_imports_no_jax():
+    """Importing chip_smoke (and running nothing) pulls in no JAX."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions.
 
 These run only on a CUDA card (a CUDA kernel has no CPU mode): every
-test carries the `cuda` marker and skips without one. This file imports
-no JAX, so the card's machine runs it without the JAX package's conftest:
+kernel test carries the `cuda` marker and skips without one. One CPU test
+checks the `fm_cross_bwd` tolerance itself. This file imports no JAX, so
+the card's machine runs it without the JAX package's conftest:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -11,8 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from sparrowrecsys_torch.ops.attention import din_attention, din_attention_plain
-from sparrowrecsys_torch.ops.fm import fm_cross, fm_cross_plain
+from sparrowrecsys_torch.ops.attention import (
+    din_attention,
+    din_attention_bwd,
+    din_attention_bwd_plain,
+    din_attention_plain,
+)
+from sparrowrecsys_torch.ops.fm import fm_cross, fm_cross_bwd, fm_cross_bwd_plain, fm_cross_plain
+from sparrowrecsys_torch.ops.rowio import rows_gather, rows_gather_plain, rows_write, rows_write_plain
+from sparrowrecsys_torch.training.optim import grouped_adam
+from sparrowrecsys_torch.training.row_optim import fused_row_adam_update, init_fused_row_adam
+
+from chip_smoke import fm_bwd_tolerance, fm_cross_bwd_bf16_sum
 
 
 @pytest.fixture
@@ -107,3 +118,173 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     args = _din_inputs(2, 5, 512, 64, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         din_attention(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_bwd_tolerance_passes_a_reordered_sum_and_fails_a_bf16_sum(dtype):
+    """`fm_bwd_tolerance` (per element) holds s summed in float32 in
+    another order, and rejects s kept in bfloat16."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(4096, 5, 64, generator=g).to(dtype)
+    go = torch.randn(4096, 64, generator=g).to(dtype)
+    ref = fm_cross_bwd_plain(x, go)
+    tol = fm_bwd_tolerance(x, go, ref)
+    xf = x.float()
+    s = xf.flip(1).cumsum(1)[:, -1:]
+    reordered = (2 * go.float()[:, None, :] * (s - xf)).to(dtype)
+    assert bool(((reordered.float() - ref.float()).abs() <= tol).all())
+    bf16_sum = fm_cross_bwd_bf16_sum(x.bfloat16(), go.bfloat16()).float()
+    assert int(((bf16_sum - ref.float()).abs() > tol).sum()) > x.numel() // 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(65536, 5, 64), (100, 3, 10), (7, 5, 6), (0, 5, 8)])
+def test_fm_cross_bwd_kernel_matches_plain(cuda_device, dtype, shape):
+    """Per element within `fm_bwd_tolerance`: float32 roundings of s, and
+    in bfloat16 one rounding of dx."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    go = torch.randn((shape[0], shape[2]), generator=g).to(cuda_device, dtype)
+    before = fm_cross_bwd.launches
+    dx = fm_cross_bwd(x, go)
+    torch.cuda.synchronize()
+    assert fm_cross_bwd.launches == before + (1 if shape[0] else 0)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    ref = fm_cross_bwd_plain(x, go)
+    assert bool(((dx.float() - ref.float()).abs() <= fm_bwd_tolerance(x, go, ref)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,h", [
+    (8192, 5, 10, 32), (8, 8, 4, 8), (33, 130, 12, 16), (5, 1, 3, 64), (300, 64, 128, 32),
+])
+def test_din_attention_bwd_kernel_matches_plain(cuda_device, b, t, d, h):
+    """float32 sums over B*T in another order than cuBLAS: 1e-4 relative
+    and 1e-4 of each gradient's scale absolute. Two runs agree bit for bit
+    (the weight gradients are summed without atomics)."""
+    args = _din_inputs(b, t, d, h, cuda_device)
+    go = torch.randn(b, d, generator=torch.Generator(device="cpu").manual_seed(2)).to(cuda_device)
+    before = din_attention_bwd.launches
+    got = din_attention_bwd(*args, go)
+    torch.cuda.synchronize()
+    assert din_attention_bwd.launches == before + 1
+    ref = din_attention_bwd_plain(*args, go)
+    for name, x, r in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref):
+        assert x.shape == r.shape, name
+        scale = max(r.abs().max().item(), 1.0)
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4 * scale, msg=name)
+    again = din_attention_bwd(*args, go)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    assert not got[0][0].any() and not got[1][0].any()   # a row with no history
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels_matches_plain_autograd(cuda_device, dtype):
+    """Gradients through the wrappers on the card (forward and backward
+    kernels) equal the plain forwards' autograd gradients; no output is
+    detached from its inputs."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(512, 5, 64, generator=g).to(cuda_device, dtype).requires_grad_()
+    go = torch.randn(512, 64, generator=g).to(cuda_device, dtype)
+    before = (fm_cross.launches, fm_cross_bwd.launches)
+    out = fm_cross(x)
+    assert out.grad_fn is not None
+    (dx,) = torch.autograd.grad(out, x, go)
+    assert (fm_cross.launches, fm_cross_bwd.launches) == (before[0] + 1, before[1] + 1)
+    x_ref = x.detach().requires_grad_()
+    (dx_ref,) = torch.autograd.grad(fm_cross_plain(x_ref), x_ref, go)
+    # autograd of the plain forward rounds dx once in the input dtype, as
+    # the kernel does: within the kernel-against-plain tolerance.
+    tol = fm_bwd_tolerance(x.detach(), go, dx_ref)
+    assert bool(((dx.float() - dx_ref.float()).abs() <= tol).all())
+
+    args = _din_inputs(256, 5, 10, 32, cuda_device)
+    args[0] = args[0].to(dtype)
+    args[1] = args[1].to(dtype)
+    leaves = [a.detach().requires_grad_() for a in args]
+    gd = torch.randn(256, 10, generator=g).to(cuda_device)
+    before = din_attention_bwd.launches
+    out = din_attention(*leaves)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, gd)
+    assert din_attention_bwd.launches == before + 1
+    ref_leaves = [a.detach().requires_grad_() for a in args]
+    ref = torch.autograd.grad(din_attention_plain(*ref_leaves), ref_leaves, gd)
+    for x_, r in zip(got, ref):
+        assert x_.dtype == r.dtype
+        scale = max(r.float().abs().max().item(), 1.0)
+        tol_d = 1e-4 if x_.dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(x_.float(), r.float(), rtol=tol_d, atol=tol_d * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,u", [(30001, 30, 4096), (1000, 128, 1000), (50, 7, 40), (10, 3, 0)])
+def test_row_kernels_match_plain(cuda_device, dtype, v, d, u):
+    """A row copy is exact: gathered and written rows are bit-equal."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    table = torch.randn(v, d, generator=g).to(cuda_device, dtype)
+    ids = torch.randperm(v, generator=g)[:u].to(torch.int32).to(cuda_device)
+    before = (rows_gather.launches, rows_write.launches)
+    got = rows_gather(table, ids)
+    assert torch.equal(got, rows_gather_plain(table, ids))
+    rows = torch.randn(u, d, generator=g).to(cuda_device, dtype)
+    drop = ids.clone()
+    if u:
+        drop[::3] = -1
+        drop[1::7] = v + 5
+    out = rows_write(table.clone(), drop, rows)
+    ref = rows_write_plain(table.clone(), drop, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    launched = 1 if u else 0
+    assert (rows_gather.launches, rows_write.launches) == (before[0] + launched,
+                                                            before[1] + launched)
+
+
+@pytest.mark.cuda
+def test_row_kernels_take_an_unaligned_odd_width(cuda_device):
+    """A bf16 table of odd width (2-byte words) and an offset view."""
+    base = torch.randn(1 + 64 * 5, device=cuda_device).bfloat16()
+    table = base[1:].view(64, 5)
+    ids = torch.tensor([3, 0, 63, 10], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(rows_gather(table, ids), rows_gather_plain(table, ids))
+
+
+def _adam_grads(rng, shapes):
+    """Gradients spanning 10 decades, where Adam's rounding shows."""
+    return {k: (rng.normal(size=s) * 10.0 ** rng.integers(-8, 2, size=s)).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+@pytest.mark.cuda
+def test_adam_on_the_card_equals_the_cpu_bit_for_bit(cuda_device):
+    """`grouped_adam` and the fused row-Adam in float32 on the card (one
+    rounding per moment update, IEEE sqrt) give the CPU's updates, which
+    `tests/test_torch_optim.py` holds bit-equal to JAX's."""
+    rng = np.random.default_rng(6)
+    shapes = {"a": (300, 7), "big": (70000,), "c": (5,)}
+    params = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32)) for k, s in shapes.items()}
+    tx = grouped_adam(1e-3, eps=1e-7)
+    s_cpu, s_card = tx.init(params), tx.init({k: v.to(cuda_device) for k, v in params.items()})
+    for _ in range(5):
+        g = _adam_grads(rng, shapes)
+        u_cpu, s_cpu = tx.update({k: torch.from_numpy(v) for k, v in g.items()}, s_cpu)
+        u_card, s_card = tx.update({k: torch.from_numpy(v).to(cuda_device) for k, v in g.items()},
+                                   s_card)
+        for k in shapes:
+            assert torch.equal(u_card[k].cpu(), u_cpu[k]), k
+    table = rng.normal(size=(40, 6)).astype(np.float32)
+    f_cpu = init_fused_row_adam(torch.from_numpy(table.copy()))
+    f_card = init_fused_row_adam(torch.from_numpy(table.copy()).to(cuda_device))
+    for _ in range(5):
+        ids = rng.integers(-2, 43, size=(4, 9)).astype(np.int32)
+        g = _adam_grads(rng, {"g": (40, 6)})["g"]
+        f_cpu = fused_row_adam_update(f_cpu, torch.from_numpy(g), torch.from_numpy(ids),
+                                      learning_rate=1e-3)
+        f_card = fused_row_adam_update(f_card, torch.from_numpy(g).to(cuda_device),
+                                       torch.from_numpy(ids).to(cuda_device), learning_rate=1e-3)
+        assert torch.equal(f_card.buf.cpu(), f_cpu.buf)
