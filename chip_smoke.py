@@ -12,7 +12,11 @@ Phases, each fatal on failure:
    the large shapes of KERNELS.md, timed with CUDA events, and by
    torch.profiler for the device's own time, beside its bound and, for
    the row kernels, the PyTorch call computing the same function; each
-   timed call reads inputs that are not in L2.
+   timed call reads inputs that are not in L2 (the row kernels at
+   [2^21, D]: a new id set each call, `row_sets`). The row kernels run
+   at the six row calls the DeepFMv2 trainer makes per step, kernel and
+   library call timed in turns, and their wrappers' host time is taken
+   part by part (`host_path`).
 4. serving: the DIN and DeepFMv2 exports behind the port's HTTP server
    on the card; the five endpoints and 2 x RANKED_REQUESTS concurrent
    ranked requests over HTTP (several seconds), with the kernels' launch
@@ -43,6 +47,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -137,6 +142,86 @@ def cycling(inputs, nbytes: int):
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def in_turns(fns: dict, measure, rounds: int = 8) -> dict:
+    """{name: (median, least, most)} of `measure(fn)` over `rounds` rounds
+    for each of `fns`, taken in turns with the order reversed every other
+    round (a b, b a, ...), so that a drift in the host's speed falls on
+    each alike. Back-to-back CUDA events on a kernel of a few
+    microseconds read the host's rate, which moves by a third between
+    runs on a host shared with other work."""
+    got = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[k].append(measure(fns[k]))
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
+
+
+def host_us(fn, iters: int = 2000) -> float:
+    """Host microseconds per call of `fn()`: `time.perf_counter` over
+    `iters` calls with no synchronisation in between. A launch queues in
+    about the time the device takes to run a row kernel, so the queue
+    does not fill and this reads what the host spends on a call."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_path():
+    """The row wrappers' host time per call, whole and part by part, at
+    the trainer's shape (DeepFMv2's fused user buffer [30001, 30] f32, the
+    touched ids of one synthetic batch as the row-Adam routes them): the
+    whole call, the input checks (`rowio._check`), the lookup of the
+    launch's scalars, a ctypes call of each entry point with the real
+    pointers and the scalars of U = 0 (the C side returns before it reads
+    the device or launches) and with the real scalars (the launch
+    alone), and the PyTorch calls computing the same functions. In us,
+    host clock."""
+    import torch
+
+    from sparrowrecsys_torch.data.synthetic import synthetic_ctr_dataset
+    from sparrowrecsys_torch.ops import kernels, rowio
+    from sparrowrecsys_torch.training.row_optim import _touched_rows
+
+    users = torch.from_numpy(synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features["userId"])
+    uids, safe = _touched_rows(users.cuda(), 30001)
+    table = torch.randn(30001, 30, device="cuda")
+    rows = torch.randn(TRAIN_BATCH, 30, device="cuda")
+    lib = kernels.library()
+    idx = table.get_device()
+    valid = uids < table.shape[0]
+    safe_long, valid_ids, valid_rows = safe.long(), uids[valid].long(), rows[valid]
+    stream = kernels.stream_of(idx)
+    out = {}
+    for kind, args in (("rows_gather", (table, safe)), ("rows_write", (table, uids, rows))):
+        entry = getattr(lib, kind)
+        ptrs = (table.data_ptr(), args[1].data_ptr(), rows.data_ptr())
+        misalign = (ptrs[0] | ptrs[2]) & 15
+        scalars = rowio._scalars(120, misalign, TRAIN_BATCH, table.shape[0], idx)
+        empty = rowio._scalars(120, misalign, 0, table.shape[0], idx)
+        out[kind] = {
+            "call": host_us(lambda: getattr(rowio, kind)(*args)),
+            "check": host_us(lambda: rowio._check(kind, idx, *args)),
+            "scalars": host_us(
+                lambda: rowio._scalars(120, misalign, TRAIN_BATCH, table.shape[0], idx)),
+            "ctypes_empty_launch": host_us(lambda: entry(*ptrs, empty, stream)),
+            "ctypes_launch": host_us(lambda: entry(*ptrs, scalars, stream)),
+        }
+    out["library_calls"] = {
+        "index_select": host_us(lambda: torch.index_select(table, 0, safe_long)),
+        "index_copy_": host_us(lambda: table.index_copy_(0, valid_ids, valid_rows)),
+    }
+    log(f"[kernels] host path, us per call: {json.dumps(out)}")
+    return out
 
 
 # ---- phase 3 -----------------------------------------------------------------
@@ -386,13 +471,39 @@ def check_din_attention_bwd(b, t, d, h, iters):
     return row
 
 
-def check_rows(kind, table, ids, iters, label):
-    """rows_gather or rows_write on `table` and `ids` against the plain
-    version (a row copy is exact: bit-equal), timed beside the bound and
-    one PyTorch call computing the same function (`index_select`, or
-    `index_copy_` on the in-range ids), which the port never calls."""
+def row_sets(table, id_sets, rows=None):
+    """Input sets for timed row calls, taken in turn, each (table, ids,
+    rows or None, in-range ids as int64, their rows): with one id set,
+    copies of the table, ids and rows that span 4 x L2_BYTES; with several
+    (a table too large to copy), each id set on the one table with a copy
+    of the rows, `rows_cases` drawing enough id sets that the rows they
+    touch span 4 x L2_BYTES. So no timed call finds its rows in L2."""
     import torch
 
+    def one(t, i, r):
+        keep = (i >= 0) & (i < t.shape[0])
+        return (t, i, r, i[keep].long(), None if r is None else r[keep])
+
+    if len(id_sets) > 1:
+        return [one(table, i, None if rows is None else rows.clone()) for i in id_sets]
+    inputs = (table, id_sets[0]) + (() if rows is None else (rows,))
+    nbytes = sum(a.numel() * a.element_size() for a in inputs)
+    copies = max(1, math.ceil(4 * L2_BYTES / nbytes))
+    sets = [inputs] + [tuple(torch.clone(a) for a in inputs) for _ in range(copies - 1)]
+    return [one(s[0], s[1], s[2] if rows is not None else None) for s in sets]
+
+
+def check_rows(kind, table, id_sets, iters, label):
+    """rows_gather or rows_write on `table` and the first of `id_sets`
+    against the plain version (a row copy is exact: bit-equal), timed over
+    `row_sets` beside the bound and one PyTorch call computing the same
+    function (`index_select`, or `index_copy_` on the in-range ids), which
+    the port never calls: CUDA events and host time per call (`host_us`),
+    kernel and library call in turns (`in_turns`, medians), and device
+    time under torch.profiler; with the kernel's launch plan."""
+    import torch
+
+    from sparrowrecsys_torch.ops import rowio
     from sparrowrecsys_torch.ops.rowio import (
         rows_gather,
         rows_gather_plain,
@@ -400,96 +511,130 @@ def check_rows(kind, table, ids, iters, label):
         rows_write_plain,
     )
 
+    ids = id_sets[0]
     u, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
     valid = (ids >= 0) & (ids < table.shape[0])
+    # The plan, where the package has one (a package from before the
+    # launch plan is timed with this yardstick too).
+    launch_plan = getattr(rowio, "launch_plan", None)
     if kind == "rows_gather":
+        before = rows_gather.launches
         out, ref = rows_gather(table, ids), rows_gather_plain(table, ids)
+        launched = rows_gather.launches - before
         ok = torch.equal(out, ref)
+        plan = launch_plan and launch_plan(row_bytes, table.data_ptr(), out.data_ptr(), u)
         del out, ref
         # Bytes: read each distinct row once (the trainer's drop slots are
         # all clamped to row V-1) and the U ids, write U rows.
         n_read = int(torch.unique(ids).numel())
         nbytes = (n_read + u) * row_bytes + 4 * u
-        long_ids = ids.long()
-        nxt = cycling((table, ids), table.numel() * table.element_size() + 4 * u)
+        sets = row_sets(table, id_sets)
 
         def kernel():
-            t, i = nxt()
+            t, i, _, _, _ = nxt()
             return rows_gather(t, i)
 
         def plain():
-            t, i = nxt()
+            t, i, _, _, _ = nxt()
             return rows_gather_plain(t, i)
 
         def library():
-            t, _ = nxt()
+            t, _, _, long_ids, _ = nxt()
             return torch.index_select(t, 0, long_ids)
 
         marker = "rows_gather_kernel"
     else:
         rows = torch.randn(u, table.shape[1], device="cuda").to(table.dtype)
-        out, ref = rows_write(table.clone(), ids, rows), rows_write_plain(table.clone(), ids, rows)
+        before = rows_write.launches
+        out = rows_write(table.clone(), ids, rows)
+        launched = rows_write.launches - before
+        ref = rows_write_plain(table.clone(), ids, rows)
         ok = torch.equal(out, ref)
+        plan = launch_plan and launch_plan(row_bytes, table.data_ptr(), rows.data_ptr(), u)
         del out, ref
         n_read = int(valid.sum().item())
         # Bytes: read the in-range rows and every id, write the in-range rows.
         nbytes = 2 * n_read * row_bytes + 4 * u
-        valid_ids, valid_rows = ids[valid].long(), rows[valid]
-        nxt = cycling((rows,), rows.numel() * rows.element_size())
+        sets = row_sets(table, id_sets, rows)
 
         def kernel():
-            return rows_write(table, ids, *nxt())
+            t, i, r, _, _ = nxt()
+            return rows_write(t, i, r)
 
         def plain():
-            return rows_write_plain(table, ids, *nxt())
+            t, i, r, _, _ = nxt()
+            return rows_write_plain(t, i, r)
 
         def library():
-            nxt()
-            return table.index_copy_(0, valid_ids, valid_rows)
+            t, _, _, valid_ids, valid_rows = nxt()
+            return t.index_copy_(0, valid_ids, valid_rows)
 
         marker = "rows_write_kernel"
     torch.cuda.synchronize()
-    if not ok:
-        raise AssertionError(f"{kind} {label}: differs from its plain version")
+    if not ok or launched != 1:
+        raise AssertionError(f"{kind} {label}: differs from its plain version or launched "
+                             f"{launched} times")
+    nxt = itertools.cycle(sets).__next__
     t_bound, by = bound(nbytes, 0)
+    pair = {"kernel": kernel, "library": library}
+    ms = in_turns(pair, lambda fn: timed(fn, iters))
+    us = in_turns(pair, lambda fn: host_us(fn, 500))
     row = {"shape": list(table.shape), "ids": u, "in_range": int(valid.sum().item()),
-           "rows_read": n_read,
+           "rows_read": n_read, "bytes": nbytes, "input_sets": len(sets),
+           "plan": plan and plan._asdict(),
            "dtype": str(table.dtype).replace("torch.", ""), "label": label, "max_abs_err": 0.0,
-           "ms": timed(kernel, iters), "plain_ms": timed(plain, iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": timed(library, iters),
+           "ms": ms["kernel"][0], "plain_ms": timed(plain, iters),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": ms["library"][0],
+           "ms_range": ms["kernel"][1:], "library_ms_range": ms["library"][1:],
            "device_ms": device_ms(kernel, iters, marker),
-           "plain_device_ms": device_ms(plain, iters)}
+           "plain_device_ms": device_ms(plain, iters),
+           "library_device_ms": device_ms(library, iters),
+           "host_us": us["kernel"][0], "library_host_us": us["library"][0]}
     log(f"[kernels] {kind} {json.dumps(row)}")
     return row
 
 
 def rows_cases(iters_small, iters_large):
-    """Both row kernels at the trainer's shape (DeepFMv2's fused user
-    buffer [30001, 30] f32 with the touched ids of one synthetic batch of
-    65536, as the lazy row-Adam pads and routes them) and at the shapes of
-    KERNELS.md ([2^21, 128] and [2^21, 384] f32, and [2^21, 128] bf16,
-    65536 distinct sorted ids)."""
+    """Both row kernels at the six calls the trainer makes per step
+    (DeepFMv2's lazy row-Adam on its user and movie tables: the [V, 3D]
+    buffer gather, the [V, D] gradient gather and the buffer write, with
+    the ids of one synthetic batch of 65536 padded and routed as
+    `_touched_rows` does) and at the shapes of KERNELS.md ([2^21, 128] and
+    [2^21, 384] f32, and [2^21, 128] bf16, 65536 distinct sorted ids, a
+    new draw for each timed set until the rows they touch span 4 x
+    L2_BYTES)."""
     import torch
 
+    from sparrowrecsys_torch.config import MOVIE_VOCAB_SIZE, USER_VOCAB_SIZE
     from sparrowrecsys_torch.data.synthetic import synthetic_ctr_dataset
     from sparrowrecsys_torch.training.row_optim import _touched_rows
 
     out = {"rows_gather": [], "rows_write": []}
-    users = torch.from_numpy(synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features["userId"])
-    uids, safe = _touched_rows(users.cuda(), 30001)
-    buf = torch.randn(30001, 30, device="cuda")
-    out["rows_gather"].append(check_rows("rows_gather", buf, safe, iters_small, "train"))
-    out["rows_write"].append(check_rows("rows_write", buf, uids, iters_small, "train"))
-    del buf
+    feats = synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features
+    tables = (("userId", USER_VOCAB_SIZE, "user"), ("movieId", MOVIE_VOCAB_SIZE, "movie"))
+    for col, v, name in tables:
+        uids, safe = _touched_rows(torch.from_numpy(feats[col]).cuda(), v)
+        buf = torch.randn(v, 30, device="cuda")
+        grad = torch.randn(v, 10, device="cuda")
+        out["rows_gather"].append(check_rows("rows_gather", buf, [safe], iters_small,
+                                             f"train {name} buffer"))
+        out["rows_write"].append(check_rows("rows_write", buf, [uids], iters_small,
+                                            f"train {name} buffer"))
+        out["rows_gather"].append(check_rows("rows_gather", grad, [safe], iters_small,
+                                             f"train {name} gradient"))
+        del buf, grad
+        torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(5)
     for width, dtype in ((128, torch.float32), (384, torch.float32), (128, torch.bfloat16)):
         v = 2 ** 21
         table = torch.randn(v, width, generator=g, device="cuda").to(dtype)
-        ids = torch.randperm(v, generator=g, device="cuda")[:TRAIN_BATCH].sort().values
-        ids = ids.to(torch.int32)
+        # A call reads and writes 65536 rows.
+        touched = 2 * TRAIN_BATCH * width * table.element_size()
+        id_sets = [torch.randperm(v, generator=g, device="cuda")[:TRAIN_BATCH].sort().values
+                   .to(torch.int32) for _ in range(max(2, math.ceil(4 * L2_BYTES / touched)))]
         for kind in out:
-            out[kind].append(check_rows(kind, table, ids, iters_large, "kernels_md"))
-        del table
+            out[kind].append(check_rows(kind, table, id_sets, iters_large, "kernels_md"))
+        del table, id_sets
         torch.cuda.empty_cache()
     return out
 
@@ -1064,6 +1209,7 @@ def main() -> int:
         check_din_attention_bwd(65536, 64, 128, 32, 3),
     ]
     row_rows = rows_cases(100, 20)
+    host_path()
     torch.cuda.empty_cache()
 
     # 4. serving end to end

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -608,9 +610,9 @@ int bwd_dispatch(const BwdArgs& a, int h, int64_t blocks, int64_t* grid, cudaStr
 
 extern "C" int din_attention_f32(const void* hist, const void* cand, const void* w1,
                                  const void* b1, const void* alpha, const void* w2,
-                                 const void* b2, void* out, int64_t batch, int steps,
-                                 int d, int h, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                 const void* b2, void* out, int64_t batch, int64_t steps,
+                                 int64_t d, int64_t h, int64_t device, void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (steps < 1 || steps > kMaxThreads) return cudaErrorInvalidValue;
   const auto* H_ = static_cast<const float*>(hist);
@@ -635,18 +637,18 @@ extern "C" int din_attention_f32(const void* hist, const void* cand, const void*
 // the [grid, 3DH + 3H + 1] scratch and passes the same grid to
 // din_attention_bwd_f32. Pointers matter: they select the 16-byte path.
 extern "C" int din_attention_bwd_grid(const void* hist, const void* cand, const void* gout,
-                                      int64_t batch, int steps, int d, int h, int device,
-                                      int64_t* grid) {
-  cudaError_t err = cudaSetDevice(device);
+                                      int64_t batch, int64_t steps, int64_t d, int64_t h,
+                                      int64_t device, int64_t* grid) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   BwdArgs a{};
   a.hist = static_cast<const float*>(hist);
   a.cand = static_cast<const float*>(cand);
   a.gout = static_cast<const float*>(gout);
   a.batch = batch;
-  a.steps = steps;
-  a.d = d;
-  return bwd_dispatch(a, h, -1, grid, nullptr);
+  a.steps = static_cast<int>(steps);
+  a.d = static_cast<int>(d);
+  return bwd_dispatch(a, static_cast<int>(h), -1, grid, nullptr);
 }
 
 extern "C" int din_attention_bwd_f32(const void* hist, const void* cand, const void* w1,
@@ -654,8 +656,9 @@ extern "C" int din_attention_bwd_f32(const void* hist, const void* cand, const v
                                      const void* b2, const void* gout, void* dh, void* dc,
                                      void* partial, int64_t blocks, void* dw1, void* db1,
                                      void* dalpha, void* dw2, void* db2, int64_t batch,
-                                     int steps, int d, int h, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                     int64_t steps, int64_t d, int64_t h, int64_t device,
+                                     void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   BwdArgs a{static_cast<const float*>(hist), static_cast<const float*>(cand),
             static_cast<const float*>(w1), static_cast<const float*>(b1),
@@ -663,6 +666,7 @@ extern "C" int din_attention_bwd_f32(const void* hist, const void* cand, const v
             static_cast<const float*>(b2), static_cast<const float*>(gout),
             static_cast<float*>(dh), static_cast<float*>(dc), static_cast<float*>(partial),
             static_cast<float*>(dw1), static_cast<float*>(db1), static_cast<float*>(dalpha),
-            static_cast<float*>(dw2), static_cast<float*>(db2), batch, steps, d};
-  return bwd_dispatch(a, h, blocks, nullptr, static_cast<cudaStream_t>(stream));
+            static_cast<float*>(dw2), static_cast<float*>(db2), batch,
+            static_cast<int>(steps), static_cast<int>(d)};
+  return bwd_dispatch(a, static_cast<int>(h), blocks, nullptr, static_cast<cudaStream_t>(stream));
 }

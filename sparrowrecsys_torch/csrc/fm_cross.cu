@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace {
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -126,7 +128,7 @@ int grid_for(int64_t n_words, int threads) {
 
 template <typename T>
 int launch(const void* x, void* out, int64_t b, int f, int d, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   constexpr int V = 16 / sizeof(T);
   const bool words = d % V == 0 && aligned16(x) && aligned16(out);
@@ -149,7 +151,7 @@ int launch(const void* x, void* out, int64_t b, int f, int d, int device, void* 
 template <typename T>
 int launch_bwd(const void* x, const void* g, void* dx, int64_t b, int f, int d, int device,
                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   constexpr int V = 16 / sizeof(T);
   const bool words = d % V == 0 && aligned16(x) && aligned16(g) && aligned16(dx);
@@ -172,22 +174,22 @@ int launch_bwd(const void* x, const void* g, void* dx, int64_t b, int f, int d, 
 
 }  // namespace
 
-extern "C" int fm_cross_f32(const void* x, void* out, int64_t b, int f, int d,
-                            int device, void* stream) {
+extern "C" int fm_cross_f32(const void* x, void* out, int64_t b, int64_t f, int64_t d,
+                            int64_t device, void* stream) {
   return launch<float>(x, out, b, f, d, device, stream);
 }
 
-extern "C" int fm_cross_bf16(const void* x, void* out, int64_t b, int f, int d,
-                             int device, void* stream) {
+extern "C" int fm_cross_bf16(const void* x, void* out, int64_t b, int64_t f, int64_t d,
+                             int64_t device, void* stream) {
   return launch<__nv_bfloat16>(x, out, b, f, d, device, stream);
 }
 
-extern "C" int fm_cross_bwd_f32(const void* x, const void* g, void* dx, int64_t b, int f,
-                                int d, int device, void* stream) {
+extern "C" int fm_cross_bwd_f32(const void* x, const void* g, void* dx, int64_t b, int64_t f,
+                                int64_t d, int64_t device, void* stream) {
   return launch_bwd<float>(x, g, dx, b, f, d, device, stream);
 }
 
-extern "C" int fm_cross_bwd_bf16(const void* x, const void* g, void* dx, int64_t b, int f,
-                                 int d, int device, void* stream) {
+extern "C" int fm_cross_bwd_bf16(const void* x, const void* g, void* dx, int64_t b, int64_t f,
+                                 int64_t d, int64_t device, void* stream) {
   return launch_bwd<__nv_bfloat16>(x, g, dx, b, f, d, device, stream);
 }

@@ -122,7 +122,8 @@ def grad_elems(d: int, h: int) -> int:
 
 
 def _check(name, hist, cand, w1, b1, alpha, w2, b2, *more, smem=shared_bytes):
-    kernels.require_cuda(name, hist, cand, w1, b1, alpha, w2, b2, *more)
+    """Raise on what the kernels do not take; returns (device index, B, T, D, H)."""
+    dev = kernels.require_cuda(name, hist, cand, w1, b1, alpha, w2, b2, *more)
     if hist.dim() != 3:
         raise ValueError(f"{name}: hist must be [B, T, D], got {tuple(hist.shape)}")
     b, t, d = hist.shape
@@ -144,11 +145,11 @@ def _check(name, hist, cand, w1, b1, alpha, w2, b2, *more, smem=shared_bytes):
             f"{name}: D={d}, H={h} needs {smem(t, d, h)} bytes of "
             f"shared memory, above the {MAX_SHARED_BYTES} a block may use"
         )
-    return b, t, d, h
+    return dev, b, t, d, h
 
 
 def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
-    b, t, d, h = _check("din_attention", hist, cand, w1, b1, alpha, w2, b2)
+    dev, b, t, d, h = _check("din_attention", hist, cand, w1, b1, alpha, w2, b2)
     out = torch.empty((b, d), dtype=torch.float32, device=hist.device)
     if out.numel() == 0:
         return out
@@ -156,7 +157,7 @@ def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     err = lib.din_attention_f32(
         hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         alpha.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b, t, d, h, hist.device.index or 0, kernels.stream_of(hist),
+        b, t, d, h, dev, kernels.stream_of(dev),
     )
     kernels.check(lib, err, "din_attention")
     din_attention.launches += 1
@@ -168,9 +169,8 @@ def din_attention_bwd(hist, cand, w1, b1, alpha, w2, b2, g):
     gradient g [B, D]; float32 history and candidate."""
     if hist.device.type == "cpu":
         return din_attention_bwd_plain(hist, cand, w1, b1, alpha, w2, b2, g)
-    b, t, d, h = _check("din_attention_bwd", hist, cand, w1, b1, alpha, w2, b2, g,
-                        smem=bwd_shared_bytes)
-    dev = hist.device
+    dev, b, t, d, h = _check("din_attention_bwd", hist, cand, w1, b1, alpha, w2, b2, g,
+                             smem=bwd_shared_bytes)
     dh = torch.empty_like(hist)
     dc = torch.empty_like(cand)
     dw1, db1, dalpha = torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(alpha)
@@ -182,14 +182,15 @@ def din_attention_bwd(hist, cand, w1, b1, alpha, w2, b2, g):
     lib = kernels.library()
     grid = ctypes.c_int64(0)
     err = lib.din_attention_bwd_grid(hist.data_ptr(), cand.data_ptr(), g.data_ptr(),
-                                     b, t, d, h, dev.index or 0, ctypes.byref(grid))
+                                     b, t, d, h, dev, ctypes.addressof(grid))
     kernels.check(lib, err, "din_attention_bwd")
-    scratch = torch.empty((grid.value, grad_elems(d, h)), dtype=torch.float32, device=dev)
+    scratch = torch.empty((grid.value, grad_elems(d, h)), dtype=torch.float32,
+                          device=hist.device)
     err = lib.din_attention_bwd_f32(
         hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(), dc.data_ptr(),
         scratch.data_ptr(), grid.value, dw1.data_ptr(), db1.data_ptr(), dalpha.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), b, t, d, h, dev.index or 0, kernels.stream_of(hist),
+        dw2.data_ptr(), db2.data_ptr(), b, t, d, h, dev, kernels.stream_of(dev),
     )
     kernels.check(lib, err, "din_attention_bwd")
     din_attention_bwd.launches += 1

@@ -38,24 +38,25 @@ def fm_cross_bwd_plain(fields: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (2.0 * g.float()[:, None, :] * (s - x)).to(fields.dtype)
 
 
-def _check(name: str, fields: torch.Tensor, *others: torch.Tensor) -> None:
-    kernels.require_cuda(name, fields, *others, dtypes=_DTYPES)
+def _check(name: str, fields: torch.Tensor, *others: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; returns the device index."""
+    dev = kernels.require_cuda(name, fields, *others, dtypes=_DTYPES)
     if fields.dim() != 3:
         raise ValueError(f"{name}: expected [B, F, D], got {tuple(fields.shape)}")
     if any(t.dtype != fields.dtype for t in others):
         raise ValueError(f"{name}: the gradient must have the fields' dtype {fields.dtype}")
+    return dev
 
 
 def _fm_cross_kernel(fields: torch.Tensor) -> torch.Tensor:
-    _check("fm_cross", fields)
+    dev = _check("fm_cross", fields)
     b, f, d = fields.shape
     out = torch.empty((b, d), dtype=fields.dtype, device=fields.device)
     if out.numel() == 0:
         return out
     lib = kernels.library()
     fn = lib.fm_cross_f32 if fields.dtype == torch.float32 else lib.fm_cross_bf16
-    err = fn(fields.data_ptr(), out.data_ptr(), b, f, d,
-             fields.device.index or 0, kernels.stream_of(fields))
+    err = fn(fields.data_ptr(), out.data_ptr(), b, f, d, dev, kernels.stream_of(dev))
     kernels.check(lib, err, "fm_cross")
     fm_cross.launches += 1
     return out
@@ -65,7 +66,7 @@ def fm_cross_bwd(fields: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dx [B, F, D] for the output gradient g [B, D]."""
     if fields.device.type == "cpu":
         return fm_cross_bwd_plain(fields, g)
-    _check("fm_cross_bwd", fields, g)
+    dev = _check("fm_cross_bwd", fields, g)
     b, f, d = fields.shape
     if tuple(g.shape) != (b, d):
         raise ValueError(f"fm_cross_bwd: g {tuple(g.shape)} != {(b, d)}")
@@ -74,8 +75,8 @@ def fm_cross_bwd(fields: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return dx
     lib = kernels.library()
     fn = lib.fm_cross_bwd_f32 if fields.dtype == torch.float32 else lib.fm_cross_bwd_bf16
-    err = fn(fields.data_ptr(), g.data_ptr(), dx.data_ptr(), b, f, d,
-             fields.device.index or 0, kernels.stream_of(fields))
+    err = fn(fields.data_ptr(), g.data_ptr(), dx.data_ptr(), b, f, d, dev,
+             kernels.stream_of(dev))
     kernels.check(lib, err, "fm_cross_bwd")
     fm_cross_bwd.launches += 1
     return dx

@@ -35,28 +35,30 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P = ctypes.c_void_p
-_I64 = ctypes.c_int64
-_I = ctypes.c_int
-#: C entry points: name -> argtypes. Each returns a cudaError_t as int.
+#: C entry points: name -> number of arguments. Each returns a cudaError_t
+#: as int. Every argument is pointer-sized (a pointer, or an int64_t on the
+#: C side) and declared `c_void_p`: ctypes converts a Python int to
+#: `c_void_p` by a fast path, and to `c_int` or `c_int64` through a slower
+#: generic one, which a launch would pay once per argument.
 SIGNATURES = {
     # x, out, B, F, D, device, stream
-    "fm_cross_f32": [_P, _P, _I64, _I, _I, _I, _P],
-    "fm_cross_bf16": [_P, _P, _I64, _I, _I, _I, _P],
+    "fm_cross_f32": 7,
+    "fm_cross_bf16": 7,
     # x, g, dx, B, F, D, device, stream
-    "fm_cross_bwd_f32": [_P, _P, _P, _I64, _I, _I, _I, _P],
-    "fm_cross_bwd_bf16": [_P, _P, _P, _I64, _I, _I, _I, _P],
+    "fm_cross_bwd_f32": 8,
+    "fm_cross_bwd_bf16": 8,
     # hist, cand, w1, b1, alpha, w2, b2, out, B, T, D, H, device, stream
-    "din_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
-    # hist, cand, g, B, T, D, H, device, grid (out)
-    "din_attention_bwd_grid": [_P, _P, _P, _I64, _I, _I, _I, _I, ctypes.POINTER(_I64)],
+    "din_attention_f32": 14,
+    # hist, cand, g, B, T, D, H, device, grid (an int64_t written back)
+    "din_attention_bwd_grid": 9,
     # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, scratch, grid,
     # dw1, db1, dalpha, dw2, db2, B, T, D, H, device, stream
-    "din_attention_bwd_f32": [_P] * 11 + [_I64] + [_P] * 5 + [_I64, _I, _I, _I, _I, _P],
-    # table, ids, out, V, U, row bytes, device, stream
-    "rows_gather": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
-    # table, ids, rows, V, U, row bytes, device, stream
-    "rows_write": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
+    "din_attention_bwd_f32": 23,
+    # table, ids, out, int64 scalars (V, U, row bytes, the plan of
+    # ops/rowio.py::launch_plan, device), stream
+    "rows_gather": 5,
+    # table, ids, rows, int64 scalars, stream
+    "rows_write": 5,
 }
 
 _lock = threading.Lock()
@@ -127,14 +129,17 @@ def build() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. Once it is loaded,
+    no lock is taken: a launch reads one global."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for name, argtypes in SIGNATURES.items():
+            for name, n_args in SIGNATURES.items():
                 fn = getattr(lib, name)
-                fn.argtypes = argtypes
+                fn.argtypes = [ctypes.c_void_p] * n_args
                 fn.restype = ctypes.c_int
             lib.sparrow_error_string.argtypes = [ctypes.c_int]
             lib.sparrow_error_string.restype = ctypes.c_char_p
@@ -149,21 +154,25 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    """The raw current CUDA stream of `t`'s device, for a C entry point."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def stream_of(device: int) -> int:
+    """The raw handle of PyTorch's current CUDA stream on `device` (an
+    index), for a C entry point. `torch.cuda.current_stream()` builds a
+    Python `Stream` object on every call; this reads the handle alone
+    (the call PyTorch's own generated kernels launch with)."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
-def require_cuda(name: str, *tensors: torch.Tensor, dtypes=(torch.float32,)) -> None:
+def require_cuda(name: str, *tensors: torch.Tensor, dtypes=(torch.float32,)) -> int:
     """Raise unless every tensor is contiguous, of an accepted dtype and on
-    the first tensor's CUDA device."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {dev}")
+    the first tensor's CUDA device; returns that device's index."""
+    dev = tensors[0].get_device()  # -1 off the card
+    if dev < 0:
+        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {tensors[0].device}")
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {tensors[0].device}")
         if t.dtype not in dtypes:
             raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return dev

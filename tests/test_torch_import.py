@@ -1,5 +1,5 @@
-"""The PyTorch port and chip_smoke.py import nothing of JAX, flax, msgpack
-or the JAX package: the card's machine has none of them."""
+"""The PyTorch port and chip_smoke.py import nothing of JAX, flax, msgpack or the JAX
+package: the card's machine has none of them."""
 
 import os
 import re

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions.
 
 These run only on a CUDA card (a CUDA kernel has no CPU mode): every
-kernel test carries the `cuda` marker and skips without one. One CPU test
-checks the `fm_cross_bwd` tolerance itself. This file imports no JAX, so
-the card's machine runs it without the JAX package's conftest:
+kernel test carries the `cuda` marker and skips without one. The CPU tests
+check the `fm_cross_bwd` tolerance itself, the row kernels' launch plan,
+and the row wrappers' refusal of tensors on neither device. This file
+imports no JAX, so the card's machine runs it without the JAX package's
+conftest:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -19,9 +21,23 @@ from sparrowrecsys_torch.ops.attention import (
     din_attention_plain,
 )
 from sparrowrecsys_torch.ops.fm import fm_cross, fm_cross_bwd, fm_cross_bwd_plain, fm_cross_plain
-from sparrowrecsys_torch.ops.rowio import rows_gather, rows_gather_plain, rows_write, rows_write_plain
+from sparrowrecsys_torch.ops.rowio import (
+    MAX_GRID,
+    ROWS_IN_FLIGHT,
+    THREADS,
+    WORDS,
+    launch_plan,
+    rows_gather,
+    rows_gather_plain,
+    rows_write,
+    rows_write_plain,
+)
 from sparrowrecsys_torch.training.optim import grouped_adam
-from sparrowrecsys_torch.training.row_optim import fused_row_adam_update, init_fused_row_adam
+from sparrowrecsys_torch.training.row_optim import (
+    _touched_rows,
+    fused_row_adam_update,
+    init_fused_row_adam,
+)
 
 from chip_smoke import fm_bwd_tolerance, fm_cross_bwd_bf16_sum
 
@@ -252,6 +268,159 @@ def test_row_kernels_take_an_unaligned_odd_width(cuda_device):
     table = base[1:].view(64, 5)
     ids = torch.tensor([3, 0, 63, 10], dtype=torch.int32, device=cuda_device)
     assert torch.equal(rows_gather(table, ids), rows_gather_plain(table, ids))
+
+
+#: Row widths in elements: in f32 and bf16 they take every word width (16,
+#: 8, 4 and 2 bytes) and every group width (1 to 32 lanes), rows wider
+#: than a group (33, 384) included.
+ROW_WIDTHS = (1, 5, 8, 10, 15, 16, 30, 32, 33, 128, 384)
+
+
+def _rows_both_ways(table, gather_ids, write_ids, rows):
+    """Gather and write through the kernels and the plain versions: each
+    bit-equal, each wrapper launched exactly once (none for U = 0)."""
+    before = (rows_gather.launches, rows_write.launches)
+    got = rows_gather(table, gather_ids)
+    assert torch.equal(got, rows_gather_plain(table, gather_ids))
+    out = rows_write(table.clone(), write_ids, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(out, rows_write_plain(table.clone(), write_ids, rows))
+    launched = 1 if gather_ids.numel() and table.shape[1] else 0
+    assert (rows_gather.launches, rows_write.launches) == (before[0] + launched,
+                                                            before[1] + launched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ROW_WIDTHS)
+@pytest.mark.parametrize("u", [0, 3, 1021, 70001])
+def test_row_kernels_cover_every_word_and_group(cuda_device, dtype, d, u):
+    """U = 0, fewer rows than one group takes, a count that is no multiple
+    of the rows in flight, and 70,001 rows, which at wide rows take more
+    blocks than one resident wave (the grid-stride loop), at every word
+    and group width."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    v = 2 * u + 7
+    table = torch.randn(v, d, generator=g).to(cuda_device, dtype)
+    ids = torch.randperm(v, generator=g)[:u].to(torch.int32).to(cuda_device)
+    rows = torch.randn(u, d, generator=g).to(cuda_device, dtype)
+    plan = launch_plan(d * table.element_size(), table.data_ptr(), rows.data_ptr(), u)
+    words = d * table.element_size() // plan.word_bytes
+    assert plan.lanes >= min(words, 32)
+    _rows_both_ways(table, ids, ids, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d", [(30001, 30), (30001, 10), (1001, 30), (1001, 10)])
+def test_row_kernels_on_the_trainers_padded_ids(cuda_device, v, d):
+    """The row-Adam's ids for one batch: the gather's drop slots all clamp
+    to row V-1, the write's lie at V and beyond and are skipped."""
+    rng = np.random.default_rng(v + d)
+    flat = torch.from_numpy(rng.integers(-3, v + 3, size=8192).astype(np.int32))
+    uids, safe = _touched_rows(flat.to(cuda_device), v)
+    assert int((safe == v - 1).sum()) > 1 and int((uids >= v).sum()) > 1
+    g = torch.Generator(device="cpu").manual_seed(v)
+    table = torch.randn(v, d, generator=g).to(cuda_device)
+    rows = torch.randn(uids.shape[0], d, generator=g).to(cuda_device)
+    _rows_both_ways(table, safe, uids, rows)
+
+
+@pytest.mark.cuda
+def test_row_kernels_take_an_offset_view_in_narrower_words(cuda_device):
+    """A [V, 30] f32 view 4 bytes off: its 120-byte rows take 4-byte words
+    where aligned ones take 8."""
+    base = torch.randn(1 + 500 * 30, device=cuda_device)
+    table = base[1:].view(500, 30)
+    rows = torch.randn(200, 30, device=cuda_device)
+    assert launch_plan(120, table.data_ptr(), rows.data_ptr(), 200).word_bytes == 4
+    assert launch_plan(120, base.data_ptr(), rows.data_ptr(), 200).word_bytes == 8
+    ids = torch.randperm(500)[:200].to(torch.int32).to(cuda_device)
+    _rows_both_ways(table, ids, ids, rows)
+
+
+@pytest.mark.parametrize("offset", [0, 2, 4, 8])
+@pytest.mark.parametrize("u", [0, 1, 1021, 65536, 10 ** 7])
+def test_launch_plan_fits_every_row_width_and_offset(offset, u):
+    """Rows of 1 to 1,024 bytes between an aligned pointer and one
+    `offset` bytes off: the widest word that divides the row and both
+    pointers, a power of two of lanes no fewer than the row's words (at
+    most 32) and the fewest such, a grid that covers U or is one resident
+    wave. An odd byte width takes no word and raises."""
+    base = 1 << 20
+    for row_bytes in range(1, 1025):
+        if row_bytes % 2:
+            with pytest.raises(ValueError, match="2-byte words"):
+                launch_plan(row_bytes, base, base + offset, u)
+            continue
+        plan = launch_plan(row_bytes, base, base + offset, u)
+        word = plan.word_bytes
+        assert word in WORDS and row_bytes % word == 0 and (base + offset) % word == 0
+        assert all(row_bytes % w or offset % w for w in WORDS if w > word)
+        words = min(row_bytes // word, 32)
+        assert plan.lanes in (1, 2, 4, 8, 16, 32) and plan.lanes >= words
+        assert plan.lanes == 1 or plan.lanes // 2 < words
+        block_rows = THREADS // plan.lanes * ROWS_IN_FLIGHT
+        assert plan.grid * block_rows >= u or plan.grid == MAX_GRID
+        assert (plan.grid >= 1) == (u > 0) and plan.grid <= MAX_GRID
+
+
+def test_row_wrappers_refuse_tensors_neither_on_the_cpu_nor_on_a_card():
+    table = torch.zeros(4, 3, device="meta")
+    ids = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        rows_gather(table, ids)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        rows_write(table, ids, torch.zeros(2, 3, device="meta"))
+
+
+@pytest.mark.cuda
+def test_row_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    table = torch.zeros(10, 4, device=cuda_device)
+    ids = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    rows = torch.zeros(3, 4, device=cuda_device)
+    strided = torch.arange(6, dtype=torch.int32, device=cuda_device)[::2]
+    for bad_ids, match in ((ids.cpu(), "ids on"), (ids.long(), "int32"),
+                           (ids.view(3, 1), "1-D"), (strided, "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            rows_gather(table, bad_ids)
+        with pytest.raises(ValueError, match=match):
+            rows_write(table, bad_ids, rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        rows_gather(torch.zeros(4, 10, device=cuda_device).t(), ids)
+    with pytest.raises(ValueError, match=r"\[V, D\]"):
+        rows_gather(torch.zeros(10, device=cuda_device), ids)
+    with pytest.raises(ValueError, match="rows on"):
+        rows_write(table, ids, rows.cpu())
+    with pytest.raises(ValueError, match="rows of"):
+        rows_write(table, ids, rows.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rows_write(table, ids, torch.zeros(4, 3, device=cuda_device).t())
+    with pytest.raises(ValueError, match="rows"):
+        rows_write(table, ids, rows[:2])
+    with pytest.raises(ValueError, match="2-byte words"):
+        rows_gather(torch.zeros(10, 3, dtype=torch.uint8, device=cuda_device), ids)
+
+
+@pytest.mark.cuda
+def test_row_adam_at_the_trainers_widths_on_the_card_equals_the_cpu(cuda_device):
+    """`fused_row_adam_update` on a [30001, 3 x 10] buffer with padded ids
+    of one batch: the card (the row kernels) and the CPU (the plain
+    versions) agree bit for bit over three steps, with two gathers and one
+    write launched a step."""
+    rng = np.random.default_rng(9)
+    table = rng.normal(size=(30001, 10)).astype(np.float32)
+    f_cpu = init_fused_row_adam(torch.from_numpy(table.copy()))
+    f_card = init_fused_row_adam(torch.from_numpy(table.copy()).to(cuda_device))
+    for _ in range(3):
+        ids = rng.integers(0, 30001, size=(8192, 1)).astype(np.int32)
+        g = _adam_grads(rng, {"g": (30001, 10)})["g"]
+        f_cpu = fused_row_adam_update(f_cpu, torch.from_numpy(g), torch.from_numpy(ids),
+                                      learning_rate=1e-3)
+        before = (rows_gather.launches, rows_write.launches)
+        f_card = fused_row_adam_update(f_card, torch.from_numpy(g).to(cuda_device),
+                                       torch.from_numpy(ids).to(cuda_device), learning_rate=1e-3)
+        assert (rows_gather.launches, rows_write.launches) == (before[0] + 2, before[1] + 1)
+        assert torch.equal(f_card.buf.cpu(), f_cpu.buf)
 
 
 def _adam_grads(rng, shapes):
