@@ -16,7 +16,10 @@ Phases, each fatal on failure:
    [2^21, D]: a new id set each call, `row_sets`). The row kernels run
    at the six row calls the DeepFMv2 trainer makes per step, kernel and
    library call timed in turns, and their wrappers' host time is taken
-   part by part (`host_path`).
+   part by part (`host_path`). The DIN backward's device time is the
+   whole call's: its per-step kernel, the reduce and the weight-gradient
+   products (cuBLAS), with the kernel's own time, the products' share,
+   and the products alone beside one torch.mm each.
 4. serving: the DIN and DeepFMv2 exports behind the port's HTTP server
    on the card; the five endpoints and 2 x RANKED_REQUESTS concurrent
    ranked requests over HTTP (several seconds), with the kernels' launch
@@ -406,7 +409,13 @@ def din_bwd_flops(d, h, live_steps, live_rows):
 def check_din_attention_bwd(b, t, d, h, iters):
     import torch
 
-    from sparrowrecsys_torch.ops.attention import din_attention_bwd, din_attention_bwd_plain
+    from sparrowrecsys_torch.ops.attention import (
+        _din_attention_bwd_steps,
+        _din_weight_grads,
+        _tn,
+        din_attention_bwd,
+        din_attention_bwd_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(1)
     hist = torch.randn(b, t, d, generator=g, device="cuda")
@@ -420,33 +429,35 @@ def check_din_attention_bwd(b, t, d, h, iters):
     b2 = torch.randn(1, generator=g, device="cuda") * 0.1
     go = torch.randn(b, d, generator=g, device="cuda")
     weights = (w1, b1, alpha, w2, b2)
+    # The PReLU's kink: where a pre-activation lies within rounding of 0
+    # (|a| < 1e-3; the kernel's and cuBLAS's sums differ by about 1e-5 at
+    # D=128), the two may take different branches. That step's gradients
+    # then differ by (1 - alpha) * da, a true discontinuity and not an
+    # error: its dh, its row's dc, and through the step's share every
+    # weight gradient (by up to |h| (1 - alpha) |w2 dl|, about 0.3 at
+    # D=128). Those steps alone are zeroed in the history and counted:
+    # they become masked steps, the other steps' pre-activations do not
+    # depend on them, and every other step is compared in every gradient.
+    kink = (unit_preactivations(hist, cand, w1, b1).abs() < 1e-3).any(-1) \
+        & (hist != 0).any(-1)                                         # [B, T]
+    kink_steps = int(kink.sum().item())
+    hist = hist.masked_fill(kink[..., None], 0.0).contiguous()
+    del kink
     got = din_attention_bwd(hist, cand, *weights, go)
     ref = din_attention_bwd_plain(hist, cand, *weights, go)
     again = din_attention_bwd(hist, cand, *weights, go)
     torch.cuda.synchronize()
-    # The PReLU's kink: where a pre-activation lies within rounding of 0
-    # (|a| < 1e-3; the two sums differ by about 1e-5 at D=128), the kernel
-    # and cuBLAS may take different branches, and that step's dh (and its
-    # row's dc) differ by (1 - alpha) * da * w, a true discontinuity of
-    # the gradient and not an error. Those steps and rows are left out of
-    # the dh and dc comparison and counted; the weight gradients, sums
-    # over every step, are compared whole.
-    kink = (unit_preactivations(hist, cand, w1, b1).abs() < 1e-3).any(-1) \
-        & (hist != 0).any(-1)                                         # [B, T]
-    keep = {"dh": ~kink[..., None], "dc": ~kink.any(-1, keepdim=True)}
     errs = {}
     for name, x, r, y in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref, again):
         # float32 sums over B*T in another order than cuBLAS: 1e-4
         # relative and 1e-4 of the gradient's scale absolute.
-        if name in keep:
-            x, r, y = (torch.where(keep[name], v, torch.zeros_like(v)) for v in (x, r, y))
         scale = max(r.abs().max().item(), 1.0)
         errs[name] = (x - r).abs().max().item()
         if not torch.allclose(x, r, rtol=1e-4, atol=1e-4 * scale):
             raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: max err {errs[name]}")
         if not torch.equal(x, y):
             raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: two runs differ")
-    kink_steps = int(kink.sum().item())
+    del got, ref, again
     live_steps, live_rows = live_counts(hist)
     flops = din_bwd_flops(d, h, live_steps, live_rows)
     n_w = 4 * d * h + 3 * h + 1
@@ -460,13 +471,31 @@ def check_din_attention_bwd(b, t, d, h, iters):
 
     row = {"shape": [b, t, d, h], "dtype": "float32", "max_abs_err": max(errs.values()),
            "errs": errs, "deterministic": True, "live_steps": live_steps,
-           "live_rows": live_rows, "kink_steps_left_out": kink_steps,
+           "live_rows": live_rows, "kink_steps_zeroed": kink_steps,
+           "kink_share": kink_steps / max(1, live_steps + kink_steps),
            "flops": flops,
            "ms": timed(lambda: call(din_attention_bwd), iters),
            "plain_ms": timed(lambda: call(din_attention_bwd_plain), iters),
            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           "device_ms": device_ms(lambda: call(din_attention_bwd), iters, "din_attention_bwd"),
+           # Every device operation of the call: the per-step kernel, its
+           # reduce, and the weight-gradient products (cuBLAS) with their
+           # allocations' and reductions' kernels.
+           "device_ms": device_ms(lambda: call(din_attention_bwd), iters),
+           "kernel_device_ms": device_ms(lambda: call(din_attention_bwd), iters,
+                                         "din_attention_bwd"),
            "plain_device_ms": device_ms(lambda: call(din_attention_bwd_plain), iters)}
+    row["products_share"] = 1 - row["kernel_device_ms"] / row["device_ms"]
+    # The weight-gradient products alone on this call's per-step terms:
+    # the wrapper's sliced products, one torch.mm each, and the wrapper's
+    # slicing on h and h*c apart (the products if the kernel wrote h*c
+    # alone: dapre read twice in place of the copy of h).
+    _, _, dapre, hx, dsum, _ = _din_attention_bwd_steps(hist, cand, *weights, go)
+    flat, hc = hist.view(-1, d), hx[:, d:].contiguous()
+    row["products_device_ms"] = device_ms(lambda: _din_weight_grads(hx, dapre, cand, dsum), iters)
+    row["mm_products_device_ms"] = device_ms(
+        lambda: (torch.mm(hx.T, dapre), torch.mm(cand.T, dsum)), iters)
+    row["split_products_device_ms"] = device_ms(
+        lambda: (_tn(flat, dapre), _tn(hc, dapre), _tn(cand, dsum)), iters)
     log(f"[kernels] din_attention_bwd {json.dumps(row)}")
     return row
 
@@ -1207,6 +1236,8 @@ def main() -> int:
     din_bwd_rows = [
         check_din_attention_bwd(TRAIN_BATCH, 5, 10, 32, 20),
         check_din_attention_bwd(65536, 64, 128, 32, 3),
+        # D=128, H=64: the shape whose block the first backward could not fit.
+        check_din_attention_bwd(65536, 5, 128, 64, 10),
     ]
     row_rows = rows_cases(100, 20)
     host_path()

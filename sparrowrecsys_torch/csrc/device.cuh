@@ -4,12 +4,30 @@
 
 #include <cuda_runtime.h>
 
-// Make `device` the calling thread's current device where it is not
-// already. cudaGetDevice reads a thread-local; cudaSetDevice costs more,
-// and every launch would pay it.
-inline cudaError_t use_device(int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return err;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
+// Makes `device` the calling thread's current device for the guard's
+// lifetime and sets the caller's device back when it goes out of scope,
+// on every return path. PyTorch reads its current device from the same
+// thread-local, so an entry point must leave it as it found it. Where the
+// device is already current (every call on one card) it costs one
+// cudaGetDevice, a thread-local read, and sets nothing.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    status_ = cudaGetDevice(&previous_);
+    if (status_ == cudaSuccess && previous_ != device) {
+      status_ = cudaSetDevice(device);
+      restore_ = status_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (restore_) cudaSetDevice(previous_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t status() const { return status_; }
+
+ private:
+  int previous_ = -1;
+  bool restore_ = false;
+  cudaError_t status_ = cudaSuccess;
+};

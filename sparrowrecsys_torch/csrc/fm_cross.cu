@@ -128,8 +128,8 @@ int grid_for(int64_t n_words, int threads) {
 
 template <typename T>
 int launch(const void* x, void* out, int64_t b, int f, int d, int device, void* stream) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
   constexpr int V = 16 / sizeof(T);
   const bool words = d % V == 0 && aligned16(x) && aligned16(out);
   const int threads = 256;
@@ -151,8 +151,8 @@ int launch(const void* x, void* out, int64_t b, int f, int d, int device, void* 
 template <typename T>
 int launch_bwd(const void* x, const void* g, void* dx, int64_t b, int f, int d, int device,
                void* stream) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
   constexpr int V = 16 / sizeof(T);
   const bool words = d % V == 0 && aligned16(x) && aligned16(g) && aligned16(dx);
   const int threads = 256;

@@ -148,8 +148,8 @@ int launch(void* table, const void* ids, void* rows, int64_t v, int64_t u, int64
       grid > INT32_MAX) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = use_device(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(static_cast<int>(device));
+  if (guard.status() != cudaSuccess) return guard.status();
   const auto* id = static_cast<const int32_t*>(ids);
   const int words = static_cast<int>(row_words);
   const int g = static_cast<int>(grid);

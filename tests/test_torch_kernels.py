@@ -50,6 +50,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: DIN shapes of the card tests: the serving shape, small odd ones, the
+#: shapes the first kernels refused (H=64 at D=128, T=256 at D=128, T=300,
+#: H=24, H=100, D=512), the folded weight read through L1 (D=700) and the
+#: step weights outside shared memory (T=9000).
+DIN_SHAPES = [
+    (8192, 5, 10, 32), (8, 8, 4, 8), (33, 130, 12, 16), (5, 1, 3, 64), (300, 64, 128, 32),
+    (64, 5, 128, 64), (16, 256, 128, 32), (8, 300, 16, 32), (4, 5, 10, 24), (4, 5, 10, 100),
+    (2, 5, 512, 64), (3, 4, 700, 12), (2, 9000, 4, 8),
+]
+
+
 def _din_inputs(b, t, d, h, device, seed=0):
     rng = np.random.default_rng(seed)
     hist = rng.normal(size=(b, t, d)).astype(np.float32)
@@ -94,9 +105,7 @@ def test_fm_cross_kernel_on_unaligned_view(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,d,h", [
-    (8192, 5, 10, 32), (8, 8, 4, 8), (33, 130, 12, 16), (5, 1, 3, 64), (300, 64, 128, 32),
-])
+@pytest.mark.parametrize("b,t,d,h", DIN_SHAPES)
 def test_din_attention_kernel_matches_plain(cuda_device, b, t, d, h):
     """float32, another summation order than cuBLAS over 3D*H terms:
     1e-5 relative, and 1e-5 of the output's scale absolute."""
@@ -125,15 +134,19 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fm_cross(torch.zeros(4, 5, 8, device=cuda_device, dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         fm_cross(torch.zeros(4, 8, 5, device=cuda_device).transpose(1, 2))
-    args = _din_inputs(4, 5, 10, 24, cuda_device)
-    with pytest.raises(ValueError, match="H in"):
-        din_attention(*args)
-    args = _din_inputs(4, 300, 10, 32, cuda_device)
-    with pytest.raises(ValueError, match="steps"):
-        din_attention(*args)
-    args = _din_inputs(2, 5, 512, 64, cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        din_attention(*args)
+    with pytest.raises(ValueError, match="dtype"):
+        din_attention(*_din_inputs(4, 5, 10, 32, cuda_device)[:6],
+                      torch.zeros(1, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        din_attention_bwd(*_din_inputs(4, 5, 10, 32, cuda_device),
+                          torch.zeros(10, 4, device=cuda_device).t())
+    # H=24, T=300 and D=512 with H=64, which the first kernels refused,
+    # compute.
+    for shape in ((4, 5, 10, 24), (4, 300, 10, 32), (2, 5, 512, 64)):
+        args = _din_inputs(*shape, cuda_device)
+        ref = din_attention_plain(*args)
+        torch.testing.assert_close(din_attention(*args), ref, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, ref.abs().max().item()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -172,9 +185,7 @@ def test_fm_cross_bwd_kernel_matches_plain(cuda_device, dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,d,h", [
-    (8192, 5, 10, 32), (8, 8, 4, 8), (33, 130, 12, 16), (5, 1, 3, 64), (300, 64, 128, 32),
-])
+@pytest.mark.parametrize("b,t,d,h", DIN_SHAPES)
 def test_din_attention_bwd_kernel_matches_plain(cuda_device, b, t, d, h):
     """float32 sums over B*T in another order than cuBLAS: 1e-4 relative
     and 1e-4 of each gradient's scale absolute. Two runs agree bit for bit
@@ -457,3 +468,35 @@ def test_adam_on_the_card_equals_the_cpu_bit_for_bit(cuda_device):
         f_card = fused_row_adam_update(f_card, torch.from_numpy(g).to(cuda_device),
                                        torch.from_numpy(ids).to(cuda_device), learning_rate=1e-3)
         assert torch.equal(f_card.buf.cpu(), f_cpu.buf)
+
+
+@pytest.mark.cuda
+def test_kernels_leave_the_callers_current_device(cuda_device):
+    """Each of the six kernels launched on cuda:1 from a thread whose
+    current device is cuda:0 leaves cuda:0 current (PyTorch reads its
+    current device from the same CUDA thread-local the entry points set)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: on one card the tensors' device is always the "
+                    "current one, so one H100 cannot show the fault")
+    other = torch.device("cuda", 1)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn(64, 5, 16, generator=g).to(other)
+    go = torch.randn(64, 16, generator=g).to(other)
+    args = _din_inputs(32, 5, 10, 32, other)
+    gd = torch.randn(32, 10, generator=g).to(other)
+    table = torch.randn(100, 8, generator=g).to(other)
+    ids = torch.arange(0, 100, 3, dtype=torch.int32, device=other)
+    rows = torch.randn(ids.shape[0], 8, generator=g).to(other)
+    calls = {
+        "fm_cross": lambda: fm_cross(x),
+        "fm_cross_bwd": lambda: fm_cross_bwd(x, go),
+        "din_attention": lambda: din_attention(*args),
+        "din_attention_bwd": lambda: din_attention_bwd(*args, gd),
+        "rows_gather": lambda: rows_gather(table, ids),
+        "rows_write": lambda: rows_write(table, ids, rows),
+    }
+    with torch.cuda.device(0):
+        for name, call in calls.items():
+            call()
+            assert torch.cuda.current_device() == 0, name
+    torch.cuda.synchronize(other)
