@@ -23,20 +23,24 @@ Phases, each fatal on failure:
 4. serving: the DIN and DeepFMv2 exports behind the port's HTTP server
    on the card; the five endpoints and 2 x RANKED_REQUESTS concurrent
    ranked requests over HTTP (several seconds), with the kernels' launch
-   counts read around that run; the
-   card's wave scores against the same scorers on the CPU; one wave's
+   counts read around that run; then ZOO_REQUESTS ranked requests for
+   each of the other five exports on the same server (EmbeddingMLP,
+   Wide&Deep, the NeuralCF two-tower and DIEN as named scorers, NeuralCF
+   as the id-only scorer at ?model=neuralcf); each model's
+   card wave scores against the same scorers on the CPU; one wave's
    wall time beside its model forward alone, and the device's busy time
    and idle share over a profiled run of waves (torch.profiler).
-5. training: DeepFM, DeepFMv2 (lazy row-Adam on its user and movie
-   tables) and DIN at the shipped widths, batch 65536, on synthetic data
-   with a planted signal: one step's loss and gradients card against CPU;
-   Trainer.fit for 2 epochs of 8 steps (the loss falls, the last AUC
-   beats 0.5, examples/s) with the launch counters read around it, held
-   against the same fit on the CPU (per-epoch loss and AUC, each
-   parameter's drift); one step's forward/backward/optimizer ms and the
-   device's busy time and idle share. Then the hand-off: `training.run`
-   exports a DeepFMv2 on the card, and the serving scorer ranks a wave
-   with the export.
+5. training: all eight zoo models at the shipped widths, batch 65536, on
+   synthetic data with a planted signal (DIEN with its negative columns
+   and `dien_loss_fn`, DeepFMv2's user and movie tables and DIEN's user
+   table on the lazy row-Adam): one step's loss and gradients card
+   against CPU; Trainer.fit for 2 epochs of 8 steps (the loss falls, the
+   last AUC beats 0.5, examples/s) with the launch counters read around
+   it, held against the same fit on the CPU (per-epoch loss and AUC,
+   each parameter's drift); one step's forward/backward/optimizer ms and
+   the device's busy time and idle share. Then the hand-off:
+   `training.run` exports a DeepFMv2 and a DIEN on the card, and the
+   serving scorer ranks a wave with each export.
 6. summary: one {"kernels": [...]} line, then the last line,
    {"ok": true, "device": {...}}.
 
@@ -77,6 +81,12 @@ TRAIN_STEPS = 8
 RANKED_USERS = 64
 RANKED_REQUESTS = 2048
 CONCURRENCY = 16
+#: The models whose kernels the serving path launches (2 x RANKED_REQUESTS
+#: ranked requests), and the rest of the zoo (ZOO_REQUESTS each; NeuralCF,
+#: last, through the id-only scorer).
+KERNEL_MODELS = ("din", "deepfm_v2")
+ZOO_MODELS = ("embedding_mlp", "wide_deep", "neuralcf_two_tower", "dien", "neuralcf")
+ZOO_REQUESTS = 256
 
 
 def log(msg: str) -> None:
@@ -693,6 +703,22 @@ def _get(url: str):
         return r.status, r.read()
 
 
+def _ranked(base, users, models, per_model):
+    """`per_model` concurrent ranked requests for each of `models` over
+    HTTP, each checked; returns the wall time in s."""
+    ranked = [f"{base}/getrecforyou?id={u}&size=32&model={m}"
+              for u in itertools.islice(itertools.cycle(users), per_model) for m in models]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CONCURRENCY) as pool:
+        results = list(pool.map(_get, ranked))
+    wall = time.perf_counter() - t0
+    for url, (status, body) in zip(ranked, results):
+        movies = json.loads(body)
+        if status != 200 or len(movies) != 32 or not all("movieId" in m for m in movies):
+            raise AssertionError(f"{url}: status {status}, {len(movies)} movies")
+    return wall
+
+
 def serving_phase(device: str = "cuda"):
     """Returns (launch counts during the HTTP run, requests/s, parity)."""
     import numpy as np
@@ -700,6 +726,7 @@ def serving_phase(device: str = "cuda"):
 
     from sparrowrecsys_torch.config import DataConfig, ServingConfig
     from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.models.dien import NEGATIVE_COLS
     from sparrowrecsys_torch.ops.attention import din_attention
     from sparrowrecsys_torch.ops.fm import fm_cross
     from sparrowrecsys_torch.serving.assembler import FeatureAssembler
@@ -710,14 +737,19 @@ def serving_phase(device: str = "cuda"):
     data = DataConfig(data_root=os.path.join(REPO, "data"))
     dm = load_catalog(data)
     asm = FeatureAssembler(FeatureStore.load(data.path("feature_store.json")), dm)
-    models = ("din", "deepfm_v2")
+    models = KERNEL_MODELS + ZOO_MODELS
 
     def scorers(device):
-        return {m: ModelScorer.from_checkpoint(
-            build_model(m), data.path(f"modeldata/{m}"), asm, device=device) for m in models}
+        """The named full-feature scorers, and the id-only NeuralCF one."""
+        named = {m: ModelScorer.from_checkpoint(
+            build_model(m), data.path(f"modeldata/{m}"), asm, device=device,
+            extra_int_cols=NEGATIVE_COLS if m == "dien" else ()) for m in models[:-1]}
+        return named, ModelScorer.from_checkpoint(
+            build_model("neuralcf"), data.path("modeldata/neuralcf"), device=device)
 
+    named, ncf = scorers(device)
     server = RecSysServer(dm, ServingConfig(port=0, model_poll_s=0),
-                          scorers=scorers(device), device=device)
+                          scorers=named, device=device, scorer=ncf)
     server.start()
     try:
         t0 = time.perf_counter()
@@ -738,36 +770,33 @@ def serving_phase(device: str = "cuda"):
             if status != 200 or not body:
                 raise AssertionError(f"{path}: status {status}, {len(body)} bytes")
             json.loads(body)
-        ranked = [f"{base}/getrecforyou?id={u}&size=32&model={m}"
-                  for u in itertools.islice(itertools.cycle(users), RANKED_REQUESTS)
-                  for m in models]
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(CONCURRENCY) as pool:
-            results = list(pool.map(_get, ranked))
-        wall = time.perf_counter() - t0
+        n_ranked = RANKED_REQUESTS * len(KERNEL_MODELS)
+        wall = _ranked(base, users, KERNEL_MODELS, RANKED_REQUESTS)
         counts = {"fm_cross": fm_cross.launches, "din_attention": din_attention.launches}
-        for url, (status, body) in zip(ranked, results):
-            movies = json.loads(body)
-            if status != 200 or len(movies) != 32 or not all("movieId" in m for m in movies):
-                raise AssertionError(f"{url}: status {status}, {len(movies)} movies")
-        _, body = _get(base + "/metrics")
-        waves = {m: json.loads(body)["batchers"][m] for m in models}
         # A smoke reading of the host-bound serving rate over the whole
         # window, not a benchmark: one client process on the server's host.
-        log(f"[serving] {len(ranked)} ranked requests in {wall:.3f} s = "
-            f"{len(ranked) / wall:.1f} req/s over the whole window, concurrency "
-            f"{CONCURRENCY}; waves {json.dumps(waves)}")
+        log(f"[serving] {n_ranked} ranked requests in {wall:.3f} s = "
+            f"{n_ranked / wall:.1f} req/s over the whole window, concurrency "
+            f"{CONCURRENCY}")
         log(f"[serving] kernel launches during the HTTP run: {json.dumps(counts)}")
         for name, n in counts.items():
             if n <= 0:
                 raise AssertionError(f"{name} was not launched by the serving path")
+        for m in ZOO_MODELS:
+            zoo_wall = _ranked(base, users, (m,), ZOO_REQUESTS)
+            log(f"[serving] {m}: {ZOO_REQUESTS} ranked requests in {zoo_wall:.3f} s = "
+                f"{ZOO_REQUESTS / zoo_wall:.1f} req/s, concurrency {CONCURRENCY}")
+        _, body = _get(base + "/metrics")
+        waves = {m: json.loads(body)["batchers"][m] for m in models}
+        log(f"[serving] waves {json.dumps(waves)}")
 
         # The device's wave scores against the same exports on the CPU.
         cands, _ = server.rec_for_you._candidate_set()
         cand_ids = [c.movie_id for c in cands]
         k = server.rec_for_you.model_batch
         wave_users = users[:k]
-        cpu = scorers("cpu")
+        cpu, cpu_ncf = scorers("cpu")
+        cpu["neuralcf"] = cpu_ncf
         parity = {}
         for m in models:
             gpu_s = server.rec_for_you.scorers[m]
@@ -777,7 +806,8 @@ def serving_phase(device: str = "cuda"):
             if got.shape != (k, len(cand_ids)) or not np.isfinite(got).all():
                 raise AssertionError(f"{m}: wave scores {got.shape}, finite {np.isfinite(got).all()}")
             # 2.5e-5: the exports' float32 logit noise (1e-4 with raw
-            # numerics) times the sigmoid's slope of 1/4; DeepFMv2 adds
+            # numerics, tests/test_torch_models.py and test_torch_zoo.py)
+            # times the sigmoid's slope of 1/4; DeepFMv2 adds
             # twice its FM cross's rounding noise, from the CPU scorer's
             # fields (fm_logit_noise).
             tol = np.full(got.shape, 2.5e-5)
@@ -786,7 +816,7 @@ def serving_phase(device: str = "cuda"):
                 w_out = model.out.weight[0, 1:1 + model.proj_item.out_features].detach().numpy()
                 noise = []
                 for u in wave_users:
-                    feats = cpu[m]._host_batch(asm.features(u, cand_ids), len(cand_ids))
+                    feats = cpu[m]._host_batch(cpu[m]._rows(u, cand_ids), len(cand_ids))
                     with torch.inference_mode():
                         _, fields = model.fields(feats)
                     noise.append(fm_logit_noise(fields[: len(cand_ids)].numpy(), w_out))
@@ -797,14 +827,14 @@ def serving_phase(device: str = "cuda"):
             parity[m] = {"max_abs_err": float(err.max()), "max_tol": float(tol.max())}
         log(f"[serving] cuda vs cpu wave scores: {json.dumps(parity)}")
         if device == "cuda":
-            breakdown = wave_breakdown(server, asm, cand_ids, wave_users)
+            breakdown = wave_breakdown(server, cand_ids, wave_users)
             log(f"[serving] wave breakdown: {json.dumps(breakdown)}")
-        return counts, len(ranked) / wall, parity
+        return counts, n_ranked / wall, parity
     finally:
         server.stop()
 
 
-def wave_breakdown(server, asm, cand_ids, wave_users, iters: int = 20):
+def wave_breakdown(server, cand_ids, wave_users, iters: int = 20):
     """Per model, one [k x 800] wave: `score_wave`'s wall time (host
     feature rows, upload, forward, download; host clock, each call ends in
     a copy to the host) beside the model forward alone on the same rows
@@ -819,7 +849,7 @@ def wave_breakdown(server, asm, cand_ids, wave_users, iters: int = 20):
         for _ in range(iters):
             scorer.score_wave(wave_users)
         wave_ms = (time.perf_counter() - t0) * 1e3 / iters
-        cols = [asm.features(u, mids) for u in wave_users]
+        cols = [scorer._rows(u, mids) for u in wave_users]
         feats = scorer._host_batch({c: np.concatenate([r[c] for r in cols]) for c in cols[0]},
                                    len(wave_users) * len(mids))
         out[m] = {"rows": len(wave_users) * len(mids),
@@ -878,12 +908,19 @@ def read_counts():
 #: Per model: the training data, the tables that take the lazy row-Adam,
 #: the kernels its path must launch, and the fit's learning rate. Every
 #: model at its shipped widths (D=10; DeepFMv2 fields of 64, deep 32/16;
-#: DIN T=5, H=32). DIN's only signal is sequential (the candidate against
-#: the history) and 16 steps barely reach it: its last AUC was 0.505 at
-#: the default 1e-3 and 0.509 at 1e-2 (this script on an H100 80GB HBM3
-#: at 700 W), so its fit takes 1e-2. An AUC that near 0.5 cannot tell a
-#: right backward from a wrong one; the fit's check against the same fit
-#: on the CPU (`fit_parity`) does.
+#: DIN T=5, H=32; DIEN T=5, towers 128/64, attention and aux heads 32;
+#: EmbeddingMLP and Wide&Deep hidden 128, a 10,000-bucket cross; NeuralCF
+#: and its two-tower (10, 10)). DIN's only signal is sequential (the
+#: candidate against the history) and 16 steps barely reach it: its last
+#: AUC was 0.505 at the default 1e-3 and 0.509 at 1e-2 (this script on an
+#: H100 80GB HBM3 at 700 W), so its fit takes 1e-2. DIEN's, on the same
+#: data, takes the default 1e-3: at 1e-2 its fit amplifies float32
+#: noise (the card's fit drifted 6.1e-3 and 1.01e-2 from the CPU's in two
+#: runs of this script, the second beyond FIT_DRIFT_TOL). The NeuralCF
+#: pair sees the ids alone, and the only signal there is the movie id's
+#: parity, so theirs take 1e-2. An AUC that near 0.5 cannot tell a right
+#: backward from a wrong one; the fit's check against the same fit on the
+#: CPU (`fit_parity`) does.
 TRAIN_MODELS = {
     "deepfm": ("synthetic_ctr_dataset", None, (), 1e-3),
     "deepfm_v2": ("synthetic_ctr_dataset",
@@ -891,7 +928,34 @@ TRAIN_MODELS = {
                   ("fm_cross", "fm_cross_bwd", "rows_gather", "rows_write"), 1e-3),
     "din": ("synthetic_sequence_ctr_dataset", None, ("din_attention", "din_attention_bwd"),
             1e-2),
+    "embedding_mlp": ("synthetic_ctr_dataset", None, (), 1e-3),
+    "wide_deep": ("synthetic_ctr_dataset", None, (), 1e-3),
+    "neuralcf": ("synthetic_ctr_dataset", None, (), 1e-2),
+    "neuralcf_two_tower": ("synthetic_ctr_dataset", None, (), 1e-2),
+    "dien": ("synthetic_sequence_ctr_dataset", {"emb_userId": ("userId",)},
+             ("rows_gather", "rows_write"), 1e-3),
 }
+
+
+def make_trainer(name, cfg, device=None):
+    """The Trainer phase 5 gives `name`: its lazy row-Adam tables, and for
+    DIEN `dien_loss_fn()` (the reference aux loss)."""
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.models.dien import dien_loss_fn
+    from sparrowrecsys_torch.training.loop import Trainer
+
+    return Trainer(build_model(name), cfg, sparse_tables=TRAIN_MODELS[name][1],
+                   loss_fn=dien_loss_fn() if name == "dien" else None, device=device)
+
+
+def train_data(name, rows):
+    """The synthetic rows phase 5 trains `name` on; DIEN's with its negative
+    history columns (seed 2020, as `training.run` adds them)."""
+    from sparrowrecsys_torch.data import synthetic
+    from sparrowrecsys_torch.data.negatives import add_dien_negatives
+
+    ds = getattr(synthetic, TRAIN_MODELS[name][0])(rows, seed=20)
+    return add_dien_negatives(ds, seed=2020) if name == "dien" else ds
 
 
 def _fresh(trainer, params):
@@ -912,8 +976,10 @@ def _batch(ds, device, rows=None):
     return feats, labels, torch.ones_like(labels)
 
 
-#: The Dense layers a ReLU (DeepFM, DeepFMv2) or PReLU (DIN) follows.
-KINKED_LAYERS = ("deep1", "deep2", "fc1", "fc2")
+#: The Dense layers a ReLU (DeepFM, DeepFMv2, EmbeddingMLP, Wide&Deep,
+#: NeuralCF and its two-tower) or PReLU (DIN, DIEN) follows.
+KINKED_LAYERS = ("deep1", "deep2", "fc1", "fc2", "dense1", "dense2", "interact0",
+                 "interact1", "item0", "item1", "user0", "user1")
 
 
 def kink_rows(trainer, params, feats, delta: float = 1e-5):
@@ -959,24 +1025,22 @@ def kink_rows(trainer, params, feats, delta: float = 1e-5):
     return kink
 
 
-def one_step_parity(name, tables, ds, params, devices=("cuda", "cpu")):
+def one_step_parity(name, ds, params, devices=("cuda", "cpu")):
     """Loss and every gradient of one batch on the card against the same
     weights and batch on the CPU (plain versions there). Rows at a
     ReLU/PReLU kink (`kink_rows`) are masked out of the loss on both."""
     import torch
 
     from sparrowrecsys_torch.config import TrainConfig
-    from sparrowrecsys_torch.models import build_model
-    from sparrowrecsys_torch.training.loop import Trainer
 
     cfg = TrainConfig(batch_size=TRAIN_BATCH)
-    cpu = Trainer(build_model(name), cfg, sparse_tables=tables, device=devices[-1])
+    cpu = make_trainer(name, cfg, devices[-1])
     cpu_feats, _, _ = _batch(ds, devices[-1])
     cpu_params = {k: v.to(devices[-1]) for k, v in params.items()}
     keep = (~kink_rows(cpu, _fresh(cpu, cpu_params), cpu_feats)).float()
     out = []
     for dev in devices:
-        trainer = Trainer(build_model(name), cfg, sparse_tables=tables, device=dev)
+        trainer = make_trainer(name, cfg, dev)
         p, opt = _fresh(trainer, {k: v.to(dev) for k, v in params.items()})
         feats, labels, _ = _batch(ds, dev)
         _, loss, _, grads = trainer.loss_and_grads(p, opt, feats, labels, keep.to(dev))
@@ -1013,18 +1077,13 @@ def one_step_parity(name, tables, ds, params, devices=("cuda", "cpu")):
 FIT_LOSS_RTOL, FIT_AUC_ATOL, FIT_DRIFT_TOL = 1e-3, 1e-3, 1e-2
 
 
-def fit_parity(name, tables, ds, params, cfg, result):
+def fit_parity(name, ds, params, cfg, result):
     """The same fit on the CPU (plain versions there), held against the
     card's `result`: per-epoch loss and AUC, and each parameter's drift
     from the CPU's result over the distance the CPU moved it. Counts the
     elements that differ by more than one Adam step (lr), as flips."""
-    import torch
-
-    from sparrowrecsys_torch.models import build_model
-    from sparrowrecsys_torch.training.loop import Trainer
-
     t0 = time.perf_counter()
-    cpu = Trainer(build_model(name), cfg, sparse_tables=tables, device="cpu")
+    cpu = make_trainer(name, cfg, "cpu")
     ref = cpu.fit(ds, params={k: v.cpu() for k, v in params.items()}, verbose=False)
     report = {"cpu_fit_s": time.perf_counter() - t0, "loss_rel_err": [], "auc_err": []}
     for got, want in zip(result.history, ref.history):
@@ -1056,14 +1115,12 @@ def step_breakdown(trainer, params, ds, iters: int = 10):
     from torch.profiler import ProfilerActivity, profile
 
     from sparrowrecsys_torch.ops import metrics as M
-    from sparrowrecsys_torch.training import loop
 
     p, opt = _fresh(trainer, params)
     feats, labels, mask = _batch(ds, trainer.device)
 
     def forward():
-        logits = trainer._forward(trainer._diff_leaves(p, opt), feats)
-        return loop._default_loss(logits, labels, mask)
+        return trainer._loss(trainer._diff_leaves(p, opt), feats, labels, mask)
 
     _, _, _, grads = trainer.loss_and_grads(p, opt, feats, labels, mask)
     fwd = timed(forward, iters)
@@ -1092,6 +1149,49 @@ def step_breakdown(trainer, params, ds, iters: int = 10):
             "top_device_ms": [[n[:80], v / 1e3 / iters] for n, v in top]}
 
 
+def recurrence_breakdown(t: int = 5, d: int = 10, iters: int = 10):
+    """DIEN's two recurrences alone (`ops/augru.py`, the autodiff loop DIEN
+    trains with) at the train step's shape [TRAIN_BATCH, T, D]: device
+    operations and busy ms per call of the forward and of forward plus
+    backward, under torch.profiler. The launch count is what a CUDA graph
+    of the step would fold."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparrowrecsys_torch.ops.augru import AUGRUGate, AUGRUParams, GRUParams, augru, gru
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.3).requires_grad_()
+
+    x = torch.randn(TRAIN_BATCH, t, d, generator=g, device="cuda")
+    mask = torch.rand(TRAIN_BATCH, t, generator=g, device="cuda") < 0.8
+    att = torch.rand(TRAIN_BATCH, t, 1, generator=g, device="cuda").expand(-1, -1, d)
+    gp = GRUParams(rand(d, 3 * d), rand(d, 3 * d), rand(3 * d))
+    ap = AUGRUParams(*(AUGRUGate(rand(d, d), rand(d), rand(d, d)) for _ in range(3)))
+    weights = list(gp) + [w for gate in ap for w in gate]
+
+    def forward():
+        return augru(ap, gru(gp, x, mask), att)
+
+    def forward_backward():
+        return torch.autograd.grad(forward().sum(), weights)
+
+    out = {}
+    for name, fn in (("forward", forward), ("forward_backward", forward_backward)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = device_us(prof)
+        ops = us.pop(None)
+        out[name] = {"device_ops": ops / iters, "device_busy_ms": sum(us.values()) / 1e3 / iters}
+    return out
+
+
 def training_phase():
     """Per model at the shipped widths and batch 65536: one step card vs
     CPU; a 2-epoch fit of 8 steps with the launch counters read around
@@ -1099,19 +1199,16 @@ def training_phase():
     import numpy as np
 
     from sparrowrecsys_torch.config import TrainConfig
-    from sparrowrecsys_torch.data import synthetic
-    from sparrowrecsys_torch.models import build_model
-    from sparrowrecsys_torch.training.loop import Trainer
 
     counts = {}
-    for name, (maker, tables, path_kernels, lr) in TRAIN_MODELS.items():
+    for name, (_, _, path_kernels, lr) in TRAIN_MODELS.items():
         t0 = time.perf_counter()
-        ds = getattr(synthetic, maker)(TRAIN_BATCH * TRAIN_STEPS, seed=20)
+        ds = train_data(name, TRAIN_BATCH * TRAIN_STEPS)
         log(f"[train] {name}: {len(ds)} synthetic rows in {time.perf_counter() - t0:.3f} s")
         cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, learning_rate=lr)
-        trainer = Trainer(build_model(name), cfg, sparse_tables=tables)
+        trainer = make_trainer(name, cfg)
         params = trainer.init_params()
-        one_step_parity(name, tables, ds, params)
+        one_step_parity(name, ds, params)
 
         reset_counts()
         result = trainer.fit(ds, params=params, verbose=True)
@@ -1128,21 +1225,29 @@ def training_phase():
         for k in path_kernels:
             if counts[name][k] <= 0:
                 raise AssertionError(f"{name}: {k} was not launched by the fit")
-        fit_parity(name, tables, ds, params, cfg, result)
+        fit_parity(name, ds, params, cfg, result)
         breakdown = step_breakdown(trainer, result.params, ds)
         log(f"[train] {name} step breakdown: {json.dumps(breakdown)}")
+        if name == "dien":
+            log(f"[train] dien recurrences alone, per call: {json.dumps(recurrence_breakdown())}")
     return counts
 
 
+#: The models `hand_off` trains through `training.run` and serves.
+HAND_OFF_MODELS = ("deepfm_v2", "dien")
+
+
 def hand_off(device: str = "cuda"):
-    """`training.run` on the card exports a DeepFMv2; the port's reader
-    loads it and the serving scorer ranks one wave with it."""
+    """`training.run` on the card exports each of HAND_OFF_MODELS; the
+    port's reader loads it and the serving scorer (DIEN's with its zero
+    negative columns, as the server gives it) ranks one wave with it."""
     import tempfile
 
     import numpy as np
 
     from sparrowrecsys_torch.config import DataConfig
     from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.models.dien import NEGATIVE_COLS
     from sparrowrecsys_torch.serving.assembler import FeatureAssembler
     from sparrowrecsys_torch.serving.feature_store import FeatureStore
     from sparrowrecsys_torch.serving.rankers import ModelScorer
@@ -1155,29 +1260,34 @@ def hand_off(device: str = "cuda"):
     with open(data.path("ratings.csv")) as f:
         next(f)
         users = list(dict.fromkeys(int(line.split(",")[0]) for line in f))
+    cand_ids = [m.movie_id for m in dm.get_movies(800, "rating")]
+    k = 8
 
     scratch = os.path.join(REPO, "sparrowrecsys_torch", "_build")  # git-ignored
     os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        cmd = [sys.executable, "-m", "sparrowrecsys_torch.training.run", "--model", "deepfm_v2",
-               "--epochs", "1", "--export", tmp] + (["--cpu"] if device == "cpu" else [])
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
-                              env=dict(os.environ, PYTHONPATH=REPO))
-        if proc.returncode != 0:
-            raise AssertionError(f"training.run failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
-        log(f"[handoff] training.run in {time.perf_counter() - t0:.3f} s: "
-            + " | ".join(line for line in proc.stdout.splitlines() if "epoch" in line or "test" in line))
-        tree, version, meta = load_latest(tmp)
-        model = build_model("deepfm_v2")
-        model.load_state_dict(params_from_flax(tree, model))
-        scorer = ModelScorer.from_checkpoint(build_model("deepfm_v2"), tmp, asm, device=device)
-        cand_ids = [m.movie_id for m in dm.get_movies(800, "rating")]
-        k = 8
-        scorer.prepare_wave(cand_ids, k)
-        scores = scorer.score_wave(users[:k])
+    for name in HAND_OFF_MODELS:
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            cmd = [sys.executable, "-m", "sparrowrecsys_torch.training.run", "--model", name,
+                   "--epochs", "1", "--export", tmp] + (["--cpu"] if device == "cpu" else [])
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                                  env=dict(os.environ, PYTHONPATH=REPO))
+            if proc.returncode != 0:
+                raise AssertionError(f"training.run --model {name} failed ({proc.returncode}):\n"
+                                     f"{proc.stderr[-3000:]}")
+            log(f"[handoff] training.run --model {name} in {time.perf_counter() - t0:.3f} s: "
+                + " | ".join(line for line in proc.stdout.splitlines()
+                             if "epoch" in line or "test" in line))
+            tree, version, meta = load_latest(tmp)
+            model = build_model(name)
+            model.load_state_dict(params_from_flax(tree, model))
+            scorer = ModelScorer.from_checkpoint(
+                build_model(name), tmp, asm, device=device,
+                extra_int_cols=NEGATIVE_COLS if name == "dien" else ())
+            scorer.prepare_wave(cand_ids, k)
+            scores = scorer.score_wave(users[:k])
         if scores.shape != (k, len(cand_ids)) or not np.isfinite(scores).all():
-            raise AssertionError(f"exported deepfm_v2: wave scores {scores.shape}")
+            raise AssertionError(f"exported {name}: wave scores {scores.shape}")
         log(f"[handoff] export v{version} ({meta.get('model')}) scored a [{k} x {len(cand_ids)}] "
             f"wave on {device}: mean {scores.mean():.4f}, std {scores.std():.4f}")
 
@@ -1198,6 +1308,7 @@ def main() -> int:
         print("chip_smoke: sparrowrecsys_torch is not beside this script", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     # 1. device
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1243,13 +1354,22 @@ def main() -> int:
     host_path()
     torch.cuda.empty_cache()
 
+    phase_s = {"kernels": time.perf_counter() - t_start}
     # 4. serving end to end
+    t0 = time.perf_counter()
     serving_counts, _, _ = serving_phase()
+    phase_s["serving"] = time.perf_counter() - t0
 
     # 5. training end to end, then the hand-off to serving
+    t0 = time.perf_counter()
     train_counts = training_phase()
+    phase_s["training"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     hand_off()
+    phase_s["hand_off"] = time.perf_counter() - t0
+    log(f"[time] phases in s: {json.dumps(phase_s)}; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
     trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
     counts = dict(trained, fm_cross=serving_counts["fm_cross"],
                   din_attention=serving_counts["din_attention"])

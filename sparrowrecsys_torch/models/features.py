@@ -24,6 +24,11 @@ from torch import nn
 from sparrowrecsys_torch.config import EMBEDDING_DIM, GENRE_VOCAB
 from sparrowrecsys_torch.ops.embedding import embed_lookup, uniform_embed_init
 
+GENRE_COLS = (
+    "userGenre1", "userGenre2", "userGenre3", "userGenre4", "userGenre5",
+    "movieGenre1", "movieGenre2", "movieGenre3",
+)
+
 NUMERIC_COLS = (
     "releaseYear", "movieRatingCount", "movieAvgRating", "movieRatingStddev",
     "userRatingCount", "userAvgRating", "userRatingStddev",
@@ -81,7 +86,8 @@ class IdEmbed(nn.Module):
 
 class IdBias(nn.Module):
     """First-order weight of a one-hot indicator column as a [V, 1] gather
-    (`w` starts at zero). `idx=None` returns the raw column."""
+    (`w` starts at zero), over an id column or a computed index such as
+    Wide&Deep's crossed bucket. `idx=None` returns the raw column."""
 
     def __init__(self, buckets: int):
         super().__init__()
@@ -167,7 +173,9 @@ def flax_init(model: nn.Module, generator: torch.Generator,
     the JAX package's initialisers: embedding tables uniform(-0.05, 0.05);
     Dense kernels (an `nn.Linear` weight, or a raw [in, out] kernel the
     model lists in `RAW_KERNELS`, such as DIN's `att_w1`) lecun-normal
-    over their fan-in; biases, PReLU slopes
+    over their fan-in; the raw kernels a model lists in
+    `ORTHOGONAL_KERNELS` (DIEN's `gru_recurrent`) orthogonal, as flax's
+    `orthogonal()` draws them; biases, PReLU slopes
     and first-order id weights zeros, as flax's `Dense`, `PReLU` and
     `IdBias` have them."""
     linear = {name for name, m in model.named_modules() if isinstance(m, nn.Linear)}
@@ -181,6 +189,9 @@ def flax_init(model: nn.Module, generator: torch.Generator,
             out[name] = table(p.shape, generator, device)
         elif name in getattr(model, "RAW_KERNELS", ()):
             out[name] = lecun_normal(p.shape, p.shape[0], generator, device)
+        elif name in getattr(model, "ORTHOGONAL_KERNELS", ()):
+            t = torch.empty(p.shape, dtype=torch.float32)
+            out[name] = torch.nn.init.orthogonal_(t, generator=generator).to(device)
         else:
             out[name] = torch.zeros(p.shape, dtype=torch.float32, device=device)
     return out

@@ -102,9 +102,12 @@ class FeatureAssembler:
             row["movieAvgRating"] = float(m.average_rating)
         return row
 
-    def features(self, user_id: int, movie_ids: Sequence[int]) -> Dict[str, np.ndarray]:
+    def features(self, user_id: int, movie_ids: Sequence[int],
+                 extra_int_cols: Sequence[str] = ()) -> Dict[str, np.ndarray]:
         """Full feature dict for scoring `movie_ids` for `user_id`: int32
-        ids, history and genre indices, float32 numerics."""
+        ids, history and genre indices, float32 numerics. `extra_int_cols`
+        adds zero int32 columns (DIEN's negative history, which only its
+        training-time aux heads read)."""
         n = len(movie_ids)
         u = self.user_row(int(user_id))
         feats: Dict[str, np.ndarray] = {
@@ -120,6 +123,8 @@ class FeatureAssembler:
             feats[c] = mg[:, k]
         for k, c in enumerate(MOVIE_FLOAT_COLS):
             feats[c] = mf[:, k]
+        for c in extra_int_cols:
+            feats[c] = np.zeros(n, np.int32)
         return feats
 
     def movie_block(self, movie_ids: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:

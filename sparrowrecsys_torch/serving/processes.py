@@ -4,13 +4,15 @@ similar movies: candidates are the union of each genre's top 100 by
 rating, the movie itself removed; ranked by embedding cosine ("emb") or
 by 0.7 * genre overlap + 0.3 * rating / 5.
 
-rec for you: the top-800 movies by rating; ranked by a full-feature zoo
-scorer (`?model=<name>`), by user-movie cosine ("emb"), or left in
-candidate order. Concurrent requests are always micro-batched: one
-cosine pass, or one model wave, for all of them (the JAX server is only
-ever built with micro-batching on, too). NeuralCF (`?model=neuralcf`)
-is not ported yet and falls to candidate order, as the JAX server does
-when it has no NeuralCF scorer.
+rec for you: the top-800 movies by rating; ranked by a zoo scorer
+(`?model=<name>`: a full-feature model, or NeuralCF over the ids at
+`?model=neuralcf` and at the reference's typo `nerualcf`), by user-movie
+cosine ("emb"), or left in candidate order (also for `neuralcf` when the
+server has no NeuralCF scorer, as the JAX server does). Concurrent
+requests are always micro-batched: one cosine pass, or one model wave,
+for all of them (the JAX server is only ever built with micro-batching
+on; it scores NeuralCF request by request, which gives each row the same
+score, as the models score rows independently).
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from sparrowrecsys_torch.serving.rankers import (
 )
 
 CANDIDATE_SIZE = 800  # RecForYouProcess.java:35
+#: `?model=` spellings of the NeuralCF scorer: the A/B router's bucket B
+#: carries the reference's typo (ABTest.java:14).
+NEURALCF_NAMES = ("neuralcf", "nerualcf")
 
 
 class SimilarMovieProcess:
@@ -74,7 +79,7 @@ class RecForYouProcess:
         self.device = device
         #: Model-path wave size: concurrent ranked requests per forward.
         self.model_batch = model_batch
-        #: Named full-feature scorers, {"din": ModelScorer, ...}.
+        #: Named scorers, {"din": ModelScorer, ..., "neuralcf": ...}.
         self.scorers = scorers or {}
         # The top-800 candidate set changes only with the catalog, which
         # is read-only after load: computed once.
@@ -142,6 +147,8 @@ class RecForYouProcess:
     def ranker(self, user: User, model: str) -> List[Movie]:
         """The candidate set ranked for `user` by `model`."""
         candidates, mat = self._candidate_set()
+        if model in NEURALCF_NAMES:
+            model = NEURALCF_NAMES[0]
         if model in self.scorers:
             scores = self._model_batcher(model).submit(np.array([user.user_id], np.int64))
         elif model == "emb":

@@ -6,8 +6,9 @@
 - the default similar-movie heuristic, 0.7 * genre overlap + 0.3 *
   rating / 5, on the host (`similar_score`);
 - `ModelScorer`: an in-process CTR scorer over a zoo model restored from
-  a versioned flax export, fed the full feature dict by the assembler,
-  with hot reload of new versions (`ModelVersionWatcher`).
+  a versioned flax export, fed the full feature dict by the assembler
+  (or, without one, the movie and user ids alone: NeuralCF), with hot
+  reload of new versions (`ModelVersionWatcher`).
 
 The JAX package pads candidate sets to shape buckets so that `jit`
 compiles a few shapes only; PyTorch runs eagerly, so the cosine path
@@ -102,13 +103,19 @@ def _padded(n: int) -> int:
 
 
 class ModelScorer:
-    """In-process CTR scorer: probabilities of a zoo model over the
-    assembled full feature dict, on `device` (default `cuda`)."""
+    """In-process CTR scorer: probabilities of a zoo model on `device`
+    (default `cuda`) over the full feature dict the assembler builds, or,
+    with `assembler=None`, over the movie and user ids alone (NeuralCF,
+    JAX `rankers.py:149-160`). `extra_int_cols` adds zero int32 columns
+    (DIEN's negative history, `models.dien.NEGATIVE_COLS`). A model that
+    returns (logits, aux) is scored on its logits."""
 
-    def __init__(self, model: torch.nn.Module, assembler, device=None):
+    def __init__(self, model: torch.nn.Module, assembler=None, device=None,
+                 extra_int_cols: Sequence[str] = ()):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.assembler = assembler
+        self.extra_int_cols = tuple(extra_int_cols)
         #: Hot-reload state (set by from_checkpoint): the versioned dir
         #: and the version being served.
         self.model_dir: Optional[str] = None
@@ -117,12 +124,12 @@ class ModelScorer:
         self._wave = None
 
     @classmethod
-    def from_checkpoint(cls, model: torch.nn.Module, model_dir: str, assembler,
-                        device=None) -> "ModelScorer":
+    def from_checkpoint(cls, model: torch.nn.Module, model_dir: str, assembler=None,
+                        device=None, extra_int_cols: Sequence[str] = ()) -> "ModelScorer":
         """Load the newest version under `model_dir` into `model`."""
         tree, version, _ = load_latest(model_dir)
         model.load_state_dict(params_from_flax(tree, model))
-        scorer = cls(model, assembler, device)
+        scorer = cls(model, assembler, device, extra_int_cols)
         scorer.model_dir = model_dir
         scorer.version = version
         return scorer
@@ -152,7 +159,14 @@ class ModelScorer:
 
     def _probs(self, feats) -> torch.Tensor:
         with torch.inference_mode():
-            return torch.sigmoid(self.model(feats))
+            out = self.model(feats)
+            return torch.sigmoid(out[0] if isinstance(out, tuple) else out)
+
+    def _rows(self, user_id: int, mids: np.ndarray) -> dict:
+        """The host columns of one user's candidates."""
+        if self.assembler is None:
+            return {"movieId": mids, "userId": np.full(len(mids), int(user_id), np.int32)}
+        return self.assembler.features(user_id, mids, self.extra_int_cols)
 
     def _host_batch(self, host_cols, total: int):
         """Zero-pad host columns to the batch size; upload."""
@@ -167,7 +181,7 @@ class ModelScorer:
     def score(self, user_id: int, movie_ids: Sequence[int]) -> np.ndarray:
         """Probabilities [n] of `user_id` for each movie."""
         n = len(movie_ids)
-        real = self.assembler.features(user_id, np.asarray(movie_ids, np.int32))
+        real = self._rows(user_id, np.asarray(movie_ids, np.int32))
         with DEVICE_LOCK:
             feats = self._host_batch(real, n)
             return self._probs(feats)[:n].cpu().numpy()
@@ -176,7 +190,7 @@ class ModelScorer:
         """The same candidate list for k users in one forward: [k, n]."""
         n, k = len(movie_ids), len(user_ids)
         mids = np.asarray(movie_ids, np.int32)
-        reals = [self.assembler.features(int(u), mids) for u in user_ids]
+        reals = [self._rows(int(u), mids) for u in user_ids]
         cols = {key: np.concatenate([r[key] for r in reals]) for key in reals[0]}
         with DEVICE_LOCK:
             feats = self._host_batch(cols, k * n)
@@ -188,7 +202,6 @@ class ModelScorer:
         candidate list resident on the device; each wave then uploads only
         the k user rows (`score_wave`)."""
         mids = np.asarray([int(m) for m in movie_ids], np.int32)
-        mg, mf = self.assembler.movie_block(mids)
         n = len(mids)
         total = k * n
         pad = _padded(total)
@@ -199,14 +212,20 @@ class ModelScorer:
             return torch.from_numpy(out).to(self.device)
 
         resident = {"movieId": tile_pad(mids)}
-        for j, c in enumerate(MOVIE_GENRE_COLS):
-            resident[c] = tile_pad(np.ascontiguousarray(mg[:, j]))
-        for j, c in enumerate(MOVIE_FLOAT_COLS):
-            resident[c] = tile_pad(np.ascontiguousarray(mf[:, j]))
+        user_int_cols, user_flt_cols = ("userId",), ()
+        if self.assembler is not None:
+            mg, mf = self.assembler.movie_block(mids)
+            for j, c in enumerate(MOVIE_GENRE_COLS):
+                resident[c] = tile_pad(np.ascontiguousarray(mg[:, j]))
+            for j, c in enumerate(MOVIE_FLOAT_COLS):
+                resident[c] = tile_pad(np.ascontiguousarray(mf[:, j]))
+            for c in self.extra_int_cols:
+                resident[c] = torch.zeros(pad, dtype=torch.int32, device=self.device)
+            user_int_cols += USER_INT_COLS + USER_GENRE_COLS
+            user_flt_cols = USER_FLOAT_COLS
         self._wave = {
             "resident": resident, "k": k, "n": n, "total": total, "pad": pad,
-            "user_int_cols": ("userId",) + USER_INT_COLS + USER_GENRE_COLS,
-            "user_flt_cols": USER_FLOAT_COLS,
+            "user_int_cols": user_int_cols, "user_flt_cols": user_flt_cols,
         }
 
     def score_wave(self, user_ids: Sequence[int]) -> np.ndarray:
@@ -214,16 +233,20 @@ class ModelScorer:
         w = self._wave
         if w is None or len(user_ids) != w["k"]:
             raise ValueError("call prepare_wave(movie_ids, k) first")
-        rows = [self.assembler.user_row(int(u)) for u in user_ids]
+        rows = ([self.assembler.user_row(int(u)) for u in user_ids]
+                if self.assembler is not None else [{}] * len(user_ids))
         ui = np.asarray(
             [[int(u)] + [int(r[c]) for c in w["user_int_cols"][1:]]
              for u, r in zip(user_ids, rows)], np.int32)
         uf = np.asarray(
-            [[float(r[c]) for c in w["user_flt_cols"]] for r in rows], np.float32)
+            [[float(r[c]) for c in w["user_flt_cols"]] for r in rows], np.float32
+        ).reshape(len(rows), len(w["user_flt_cols"]))
         n, tail = w["n"], w["pad"] - w["total"]
         with DEVICE_LOCK:
             feats = dict(w["resident"])
             for cols, host in ((w["user_int_cols"], ui), (w["user_flt_cols"], uf)):
+                if not cols:
+                    continue
                 dev = torch.from_numpy(host).to(self.device)
                 for j, c in enumerate(cols):
                     col = dev[:, j].repeat_interleave(n)

@@ -6,15 +6,18 @@ The port of `sparrowrecsys_tpu/serving/server.py`:
 - GET /getuser?id=
 - GET /getrecommendation?genre=&size=&sortby=
 - GET /getsimilarmovie?movieId=&size=&model=
-- GET /getrecforyou?id=&size=&model=   (model = emb, or a --rank-model)
+- GET /getrecforyou?id=&size=&model=   (model = emb, a --rank-model, or
+  neuralcf / nerualcf with --model-dir; with --ab-test the user's bucket
+  picks the model)
 - GET /metrics
 
 CORS `*`, JSON in the reference's shapes, an empty body on a miss or an
-error. The static webroot, the posters, the NeuralCF scorer
-(`--model-dir`) and `--ab-test` are not ported yet; other paths get 404.
+error. The static webroot and the posters are not ported yet; other
+paths get 404.
 
 Run: python -m sparrowrecsys_torch.serving.server --rank-model din \
-         --rank-model-dir data/modeldata/din [--cpu]
+         --rank-model-dir data/modeldata/din \
+         [--model-dir data/modeldata/neuralcf] [--ab-test] [--cpu]
 """
 
 from __future__ import annotations
@@ -27,7 +30,11 @@ from sparrowrecsys_torch.config import ServingConfig
 from sparrowrecsys_torch.serving.ab import get_config_by_user_id
 from sparrowrecsys_torch.serving.catalog import DataManager
 from sparrowrecsys_torch.serving.http import AsyncHTTPServer
-from sparrowrecsys_torch.serving.processes import RecForYouProcess, SimilarMovieProcess
+from sparrowrecsys_torch.serving.processes import (
+    NEURALCF_NAMES,
+    RecForYouProcess,
+    SimilarMovieProcess,
+)
 from sparrowrecsys_torch.serving.rankers import ModelVersionWatcher
 from sparrowrecsys_torch.utils.device import resolve_device
 from sparrowrecsys_torch.utils.observability import get_registry
@@ -41,7 +48,15 @@ class RecSysServer:
         scorers: Optional[dict] = None,
         ab_test: bool = False,
         device=None,
+        scorer=None,
     ):
+        """`scorers`: named scorers for `?model=<name>`; `scorer`: the
+        NeuralCF scorer (`--model-dir`), served at `?model=neuralcf`."""
+        scorers = dict(scorers or {})
+        if scorer is not None:
+            if NEURALCF_NAMES[0] in scorers:
+                raise ValueError("two NeuralCF scorers: --model-dir and --rank-model neuralcf")
+            scorers[NEURALCF_NAMES[0]] = scorer
         self.dm = dm
         self.config = config or ServingConfig()
         self.device = resolve_device(device)
@@ -175,7 +190,8 @@ def load_catalog(data) -> DataManager:
     )
 
 
-def main() -> None:
+def server_from_args(argv=None) -> RecSysServer:
+    """The server the command line describes, loaded and not started."""
     import argparse
     import dataclasses
 
@@ -183,8 +199,12 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--data-root", default=None)
+    ap.add_argument("--ab-test", action="store_true",
+                    help="rank /getrecforyou by the user's A/B bucket, not ?model=")
+    ap.add_argument("--model-dir", default=None, metavar="DIR",
+                    help="versioned NeuralCF export dir, served at ?model=neuralcf")
     ap.add_argument("--rank-model", default=None, metavar="NAME",
-                    help="full-feature ranker for ?model=NAME (deepfm, deepfm_v2, din)")
+                    help="full-feature ranker for ?model=NAME (any zoo model)")
     ap.add_argument("--rank-model-dir", default=None, metavar="DIR",
                     help="versioned export dir for --rank-model")
     ap.add_argument("--feature-store", default=None, metavar="PATH",
@@ -196,7 +216,7 @@ def main() -> None:
                     help="shed with 503 beyond this many in-flight requests (0 = off)")
     ap.add_argument("--cpu", action="store_true",
                     help="serve on the CPU; the default is the CUDA device")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     data = DataConfig() if args.data_root is None else DataConfig(data_root=args.data_root)
@@ -206,12 +226,18 @@ def main() -> None:
     if args.max_inflight is not None:
         cfg = dataclasses.replace(cfg, max_inflight=args.max_inflight)
     dm = load_catalog(data)
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.serving.rankers import ModelScorer
+
+    scorer = None
+    if args.model_dir:
+        scorer = ModelScorer.from_checkpoint(build_model("neuralcf"), args.model_dir,
+                                             device=device)
     scorers = None
     if args.rank_model and args.rank_model_dir:
-        from sparrowrecsys_torch.models import build_model
+        from sparrowrecsys_torch.models.dien import NEGATIVE_COLS
         from sparrowrecsys_torch.serving.assembler import FeatureAssembler
         from sparrowrecsys_torch.serving.feature_store import FeatureStore
-        from sparrowrecsys_torch.serving.rankers import ModelScorer
 
         store_path = args.feature_store or data.path("feature_store.json")
         store = FeatureStore.load(store_path) if os.path.exists(store_path) else FeatureStore()
@@ -219,9 +245,16 @@ def main() -> None:
             args.rank_model: ModelScorer.from_checkpoint(
                 build_model(args.rank_model), args.rank_model_dir,
                 FeatureAssembler(store, dm), device=device,
+                extra_int_cols=NEGATIVE_COLS if args.rank_model == "dien" else (),
             )
         }
-    server = RecSysServer(dm, cfg, scorers=scorers, device=device)
+    return RecSysServer(dm, cfg, scorers=scorers, ab_test=args.ab_test, device=device,
+                        scorer=scorer)
+
+
+def main(argv=None) -> None:
+    server = server_from_args(argv)
+    device = server.device
     server.start()
     print(f"Sparrow RecSys (PyTorch, {device}) binding http://localhost:{server.port}/ "
           "(warming up...)", flush=True)

@@ -16,8 +16,12 @@ optimizer='adam', metrics=[accuracy, ROC-AUC, PR-AUC]); fit(...)` with:
 
 Parameters are a dict of tensors keyed by `state_dict` name, applied with
 `torch.func.functional_call`; `checkpoint.params_to_flax` turns one into
-the JAX package's tree. Not ported yet, raising NotImplementedError (and
-queued in ROADMAP.md): a custom `loss_fn` (DIEN), mesh plans, and
+the JAX package's tree. A `loss_fn` (DIEN's `dien_loss_fn`) takes the
+JAX protocol (`loop.py:76-82`, `:350-363`):
+`loss_fn(forward, params, feats, labels, mask[, generator])` ->
+(loss, (logits, summed masked objective)), with a per-step
+`torch.Generator` when `loss_fn.wants_rng`. Not ported yet, raising
+NotImplementedError (and queued in ROADMAP.md): mesh plans, and
 train-state checkpoints and resume.
 """
 
@@ -69,7 +73,8 @@ def _queued(what: str) -> NotImplementedError:
 
 
 class Trainer:
-    """Generic CTR trainer for a model mapping a feature dict to logits [B].
+    """Generic CTR trainer for a model mapping a feature dict to logits [B]
+    (or to (logits, aux) under a `loss_fn`, e.g. DIEN's).
 
     `device` defaults to cuda (`utils/device.py::resolve_device`); the
     CPU only when asked for."""
@@ -85,8 +90,7 @@ class Trainer:
     ):
         if plan is not None:
             raise _queued("training over a device mesh (MeshPlan)")
-        if loss_fn is not None:
-            raise _queued("a custom loss_fn (DIEN's auxiliary loss)")
+        self.loss_fn = loss_fn
         self.config = config or TrainConfig()
         if self.config.shuffle_mode != "exact":
             raise _queued("shuffle_mode='blocks' (the TPU layout's block shuffle)")
@@ -147,6 +151,23 @@ class Trainer:
     def _forward(self, params, feats):
         return functional_call(self.model, params, (feats,), strict=True)
 
+    def _loss(self, leaves, feats, labels, mask, generator=None):
+        """(loss, logits, summed masked objective) of one batch: the masked
+        mean BCE, or `loss_fn`'s objective."""
+        if self.loss_fn is None:
+            logits = self._forward(leaves, feats)
+            loss, loss_sum = _default_loss(logits, labels, mask)
+            return loss, logits, loss_sum
+        rng = (generator,) if getattr(self.loss_fn, "wants_rng", False) else ()
+        loss, (logits, loss_sum) = self.loss_fn(self._forward, leaves, feats, labels, mask, *rng)
+        return loss, logits, loss_sum
+
+    def step_generator(self, epoch: int, step: int) -> torch.Generator:
+        """The generator a `wants_rng` loss draws from in one step, on the
+        device, seeded from (seed + epoch, step)."""
+        seed = np.random.SeedSequence([self.config.seed + epoch, 0x6E6567, step])
+        return torch.Generator(device=self.device).manual_seed(int(seed.generate_state(1)[0]))
+
     def _diff_leaves(self, params, opt_state):
         """The tensors a step differentiates, keyed by state_dict name:
         the dense params and, for each sparse table, its fused buffer's
@@ -157,13 +178,12 @@ class Trainer:
             leaves[f"{mod}.table"] = fused_table(opt_state["rows"][mod]).detach().requires_grad_()
         return leaves
 
-    def loss_and_grads(self, params, opt_state, feats, labels, mask):
+    def loss_and_grads(self, params, opt_state, feats, labels, mask, generator=None):
         """Forward and backward of one batch: (logits, loss, summed masked
-        BCE, gradients keyed by state_dict name; a sparse table's is its
-        dense [V, D] gradient)."""
+        objective, gradients keyed by state_dict name; a sparse table's is
+        its dense [V, D] gradient)."""
         leaves = self._diff_leaves(params, opt_state)
-        logits = self._forward(leaves, feats)
-        loss, loss_sum = _default_loss(logits, labels, mask)
+        loss, logits, loss_sum = self._loss(leaves, feats, labels, mask, generator)
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         return logits.detach(), loss.detach(), loss_sum.detach(), grads
 
@@ -194,10 +214,11 @@ class Trainer:
                 v.add_(updates[k])
         return params, opt_state
 
-    def _train_step(self, params, opt_state, mstate, feats, labels, mask):
+    def _train_step(self, params, opt_state, mstate, feats, labels, mask, generator=None):
         """One step; updates `params` (and sparse buffers) in place and
         returns (params, opt_state, mstate)."""
-        logits, _, loss_sum, grads = self.loss_and_grads(params, opt_state, feats, labels, mask)
+        logits, _, loss_sum, grads = self.loss_and_grads(
+            params, opt_state, feats, labels, mask, generator)
         params, opt_state = self.apply_grads(params, opt_state, grads, feats)
         mstate = M.update_metrics(mstate, torch.sigmoid(logits), labels, loss_sum, mask)
         return params, opt_state, mstate
@@ -275,6 +296,7 @@ class Trainer:
         n = len(train)
         steps = -(-n // batch_size)
         padded = steps * batch_size
+        wants_rng = bool(getattr(self.loss_fn, "wants_rng", False))
         history = []
         timed_examples = 0
         t0 = time.perf_counter()
@@ -285,8 +307,9 @@ class Trainer:
             for s in range(steps):
                 sl = slice(s * batch_size, (s + 1) * batch_size)
                 feats, labels = self._gather(cols, labels_all, order[sl])
+                gen = self.step_generator(epoch, s) if wants_rng else None
                 params, opt_state, mstate = self._train_step(
-                    params, opt_state, mstate, feats, labels, valid[sl])
+                    params, opt_state, mstate, feats, labels, valid[sl], gen)
             if t_steady is None:
                 self._sync()
                 t_steady = time.perf_counter()
@@ -326,7 +349,8 @@ class Trainer:
             for feats, _, mask in ds.batches(batch_size, shuffle=False, pad_final=True):
                 f = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                      for k, v in feats.items()}
-                p = torch.sigmoid(self._forward(params, f)).cpu().numpy()
+                y = self._forward(params, f)
+                p = torch.sigmoid(y[0] if isinstance(y, tuple) else y).cpu().numpy()
                 if mask is not None:
                     p = p[mask > 0]
                 out.append(p)

@@ -3,13 +3,16 @@
     python -m sparrowrecsys_torch.training.run --model din --epochs 1 [--cpu]
 
 Loads the bundled samples (or --train/--test CSVs in the reference's
-27-column format), trains DeepFM, DeepFMv2 or DIN on the card (the CPU
-with --cpu), prints loss/accuracy/ROC-AUC/PR-AUC, optionally exports a
-versioned checkpoint the serving plane (either package) loads, and shows
-12 sample predictions like the reference scripts (`EmbeddingMLP.py:101-105`).
+27-column format), trains any of the eight zoo models on the card (the
+CPU with --cpu), prints loss/accuracy/ROC-AUC/PR-AUC, optionally exports
+a versioned checkpoint the serving plane (either package) loads, and
+shows 12 sample predictions like the reference scripts
+(`EmbeddingMLP.py:101-105`). DIEN trains on the samples with its negative
+history columns added (seeds 2020 for train, 2021 for test, as the
+reference's) and with `dien_loss_fn()`.
 
-Other zoo models raise NotImplementedError, as do --state-dir, --resume
-and --config until the train-state slice lands (ROADMAP.md).
+--state-dir, --resume and --config raise NotImplementedError until the
+train-state slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,12 +20,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-PORTED = ("deepfm", "deepfm_v2", "din")
-
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="deepfm")
+    ap.add_argument("--model", default="deepfm",
+                    help="embedding_mlp, wide_deep, neuralcf, neuralcf_two_tower, "
+                    "deepfm, deepfm_v2, din or dien")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--parity", action="store_true",
@@ -42,10 +45,6 @@ def main(argv=None) -> None:
     ap.add_argument("--cpu", action="store_true", help="train on the CPU instead of cuda")
     args = ap.parse_args(argv)
 
-    if args.model not in PORTED:
-        raise NotImplementedError(
-            f"training {args.model!r} is not ported yet (ported: {PORTED}); "
-            "it is queued in ROADMAP.md")
     for flag, value in (("--config", args.config), ("--state-dir", args.state_dir),
                         ("--resume", args.resume)):
         if value:
@@ -54,7 +53,9 @@ def main(argv=None) -> None:
 
     from sparrowrecsys_torch.config import DataConfig, TrainConfig
     from sparrowrecsys_torch.data.dataset import encode_samples, load_samples, standardize
+    from sparrowrecsys_torch.data.negatives import add_dien_negatives
     from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.models.dien import dien_loss_fn
     from sparrowrecsys_torch.training.checkpoint import params_to_flax, save
     from sparrowrecsys_torch.training.loop import Trainer
 
@@ -64,6 +65,11 @@ def main(argv=None) -> None:
     if args.standardize:
         train_ds, test_ds = standardize(train_ds, test_ds)
     print(f"train={len(train_ds)} test={len(test_ds)} model={args.model}")
+    loss_fn = None
+    if args.model == "dien":
+        train_ds = add_dien_negatives(train_ds, seed=2020)
+        test_ds = add_dien_negatives(test_ds, seed=2021)
+        loss_fn = dien_loss_fn()
 
     base = TrainConfig()
     overrides = {"batch_size": args.batch_size or (12 if args.parity else base.batch_size)}
@@ -75,7 +81,7 @@ def main(argv=None) -> None:
         overrides["seed"] = args.seed
     cfg = dataclasses.replace(base, **overrides)
     model = build_model(args.model)
-    trainer = Trainer(model, cfg, device="cpu" if args.cpu else None)
+    trainer = Trainer(model, cfg, loss_fn=loss_fn, device="cpu" if args.cpu else None)
     result = trainer.fit(train_ds, test=test_ds)
 
     if args.export:

@@ -82,8 +82,6 @@ def test_train_config_carries_every_field_and_default():
 def test_trainer_raises_for_what_is_not_ported():
     model = build_model("deepfm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, loss_fn=lambda *a: None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, plan=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, TrainConfig(shuffle_mode="blocks"), device="cpu")

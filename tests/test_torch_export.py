@@ -95,7 +95,7 @@ def test_run_cli_trains_on_the_cpu_and_exports(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "dien", "--cpu"], ["--model", "din", "--cpu", "--resume"],
+    ["--model", "din", "--cpu", "--resume"],
     ["--model", "din", "--cpu", "--state-dir", "x"], ["--model", "din", "--cpu", "--config", "c.json"],
 ])
 def test_run_cli_raises_for_what_is_not_ported(argv):

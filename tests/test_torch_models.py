@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparrowrecsys_torch.models import QUEUED, build_model as torch_build
+from sparrowrecsys_torch.models import build_model as torch_build
 from sparrowrecsys_torch.training.checkpoint import load_latest, params_from_flax
 from sparrowrecsys_tpu.data.dataset import encode_samples, load_samples_csv
 from sparrowrecsys_tpu.models import build_model as jax_build
@@ -113,9 +113,3 @@ def test_reader_tree_and_flax_tree_give_the_same_model():
     tree, _, _ = load_latest(os.path.join(REPO, "data/modeldata/din"))
     assert jax.tree_util.tree_all(jax.tree_util.tree_map(
         lambda a, b: np.array_equal(np.asarray(a), np.asarray(b)), flax_tree, tree))
-
-
-@pytest.mark.parametrize("name", QUEUED)
-def test_unported_zoo_models_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_build(name)

@@ -244,9 +244,9 @@ def test_ab_buckets_match_jax(uid):
 
 def test_ab_test_routes_rec_for_you_by_user_bucket(servers):
     """With the A/B router on, `?model=` is ignored and each user's bucket
-    picks the ranker; NeuralCF is not ported, so its bucket ("nerualcf")
-    leaves the candidate order, as the JAX server does without a NeuralCF
-    scorer."""
+    picks the ranker. These servers have no NeuralCF scorer, so its bucket
+    ("nerualcf") leaves the candidate order, as the JAX server does without
+    one; `test_torch_zoo.py` routes the bucket to a NeuralCF scorer."""
     from sparrowrecsys_torch.serving.ab import get_config_by_user_id
 
     jserver, tserver = servers
