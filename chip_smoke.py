@@ -41,7 +41,20 @@ Phases, each fatal on failure:
    the device's busy time and idle share. Then the hand-off:
    `training.run` exports a DeepFMv2 and a DIEN on the card, and the
    serving scorer ranks a wave with each export.
-6. summary: one {"kernels": [...]} line, then the last line,
+6. offline plane: the feature job (`data.run`) rewrites the bundled
+   training and test CSVs byte for byte and a feature-store hand-off the
+   port's store loads, and `build_samples` is timed over 1,000,000
+   synthetic events; a DeepFMv2 fit with both tables on the row-Adam
+   (batch 65536, 2 x 8 steps) interrupted after one epoch and resumed
+   from its train state in a fresh Trainer lands on the uninterrupted
+   fit (bit for bit, or within twice the distance between two
+   uninterrupted fits), with the four kernels' launches read around the
+   resumed fit; DeepFM with bfloat16 tables, float32 masters and
+   bfloat16 moments on the card against the CPU, and the dtype a
+   DeepFMv2 with bfloat16 tables hands `fm_cross`; then `training.run`
+   trains a DeepFMv2 on the job's CSVs into a state dir, resumes it for a
+   second epoch, exports, and the serving scorer ranks a wave with it.
+7. summary: one {"kernels": [...]} line, then the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -1237,22 +1250,13 @@ def training_phase():
 HAND_OFF_MODELS = ("deepfm_v2", "dien")
 
 
-def hand_off(device: str = "cuda"):
-    """`training.run` on the card exports each of HAND_OFF_MODELS; the
-    port's reader loads it and the serving scorer (DIEN's with its zero
-    negative columns, as the server gives it) ranks one wave with it."""
-    import tempfile
-
-    import numpy as np
-
+def serving_inputs():
+    """(assembler, user ids, 800 candidate ids) of the bundled catalog and
+    feature store: what the server gives a scorer."""
     from sparrowrecsys_torch.config import DataConfig
-    from sparrowrecsys_torch.models import build_model
-    from sparrowrecsys_torch.models.dien import NEGATIVE_COLS
     from sparrowrecsys_torch.serving.assembler import FeatureAssembler
     from sparrowrecsys_torch.serving.feature_store import FeatureStore
-    from sparrowrecsys_torch.serving.rankers import ModelScorer
     from sparrowrecsys_torch.serving.server import load_catalog
-    from sparrowrecsys_torch.training.checkpoint import load_latest, params_from_flax
 
     data = DataConfig(data_root=os.path.join(REPO, "data"))
     dm = load_catalog(data)
@@ -1260,36 +1264,348 @@ def hand_off(device: str = "cuda"):
     with open(data.path("ratings.csv")) as f:
         next(f)
         users = list(dict.fromkeys(int(line.split(",")[0]) for line in f))
-    cand_ids = [m.movie_id for m in dm.get_movies(800, "rating")]
-    k = 8
+    return asm, users, [m.movie_id for m in dm.get_movies(800, "rating")]
 
-    scratch = os.path.join(REPO, "sparrowrecsys_torch", "_build")  # git-ignored
-    os.makedirs(scratch, exist_ok=True)
+
+def score_export(name, export_dir, device, inputs, k: int = 8):
+    """The port's reader loads the newest export under `export_dir`, and
+    the serving scorer (DIEN's with its zero negative columns, as the
+    server gives it) ranks one [k x 800] wave with it."""
+    import numpy as np
+
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.models.dien import NEGATIVE_COLS
+    from sparrowrecsys_torch.serving.rankers import ModelScorer
+    from sparrowrecsys_torch.training.checkpoint import load_latest, params_from_flax
+
+    asm, users, cand_ids = inputs
+    tree, version, meta = load_latest(export_dir)
+    model = build_model(name)
+    model.load_state_dict(params_from_flax(tree, model))
+    scorer = ModelScorer.from_checkpoint(
+        build_model(name), export_dir, asm, device=device,
+        extra_int_cols=NEGATIVE_COLS if name == "dien" else ())
+    scorer.prepare_wave(cand_ids, k)
+    scores = scorer.score_wave(users[:k])
+    if scores.shape != (k, len(cand_ids)) or not np.isfinite(scores).all():
+        raise AssertionError(f"exported {name}: wave scores {scores.shape}")
+    log(f"[handoff] export v{version} ({meta.get('model')}) scored a [{k} x {len(cand_ids)}] "
+        f"wave on {device}: mean {scores.mean():.4f}, std {scores.std():.4f}")
+
+
+def run_cli(module, args, device):
+    """`python -m <module> <args>` from the repo root (`--cpu` on the
+    CPU); its standard output. Fails when it does."""
+    cmd = [sys.executable, "-m", module] + list(args) + (["--cpu"] if device == "cpu" else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[2:])} failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    log(f"[cli] {' '.join(cmd[2:5])} in {time.perf_counter() - t0:.3f} s: "
+        + " | ".join(line for line in proc.stdout.splitlines()
+                     if "epoch" in line or "test" in line or "resumed" in line))
+    return proc.stdout
+
+
+def scratch_dir():
+    """A git-ignored directory of the checkout for temporary files."""
+    path = os.path.join(REPO, "sparrowrecsys_torch", "_build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def hand_off(device: str = "cuda"):
+    """`training.run` on the card exports each of HAND_OFF_MODELS, and the
+    serving scorer ranks one wave with each export."""
+    import tempfile
+
+    inputs = serving_inputs()
     for name in HAND_OFF_MODELS:
-        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-            cmd = [sys.executable, "-m", "sparrowrecsys_torch.training.run", "--model", name,
-                   "--epochs", "1", "--export", tmp] + (["--cpu"] if device == "cpu" else [])
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
-                                  env=dict(os.environ, PYTHONPATH=REPO))
-            if proc.returncode != 0:
-                raise AssertionError(f"training.run --model {name} failed ({proc.returncode}):\n"
-                                     f"{proc.stderr[-3000:]}")
-            log(f"[handoff] training.run --model {name} in {time.perf_counter() - t0:.3f} s: "
-                + " | ".join(line for line in proc.stdout.splitlines()
-                             if "epoch" in line or "test" in line))
-            tree, version, meta = load_latest(tmp)
-            model = build_model(name)
-            model.load_state_dict(params_from_flax(tree, model))
-            scorer = ModelScorer.from_checkpoint(
-                build_model(name), tmp, asm, device=device,
-                extra_int_cols=NEGATIVE_COLS if name == "dien" else ())
-            scorer.prepare_wave(cand_ids, k)
-            scores = scorer.score_wave(users[:k])
-        if scores.shape != (k, len(cand_ids)) or not np.isfinite(scores).all():
-            raise AssertionError(f"exported {name}: wave scores {scores.shape}")
-        log(f"[handoff] export v{version} ({meta.get('model')}) scored a [{k} x {len(cand_ids)}] "
-            f"wave on {device}: mean {scores.mean():.4f}, std {scores.std():.4f}")
+        with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+            run_cli("sparrowrecsys_torch.training.run",
+                    ["--model", name, "--epochs", "1", "--export", tmp], device)
+            score_export(name, tmp, device, inputs)
+
+
+# ---- phase 6 -----------------------------------------------------------------
+
+#: The key count of the bundled feature job's feature_store.json (725
+#: movies, 2,492 users), as tests/test_torch_feature_pipeline.py pins it.
+STORE_KEYS = 3217
+#: The four kernels a DeepFMv2 fit with both tables on the row-Adam runs.
+RESUME_KERNELS = ("fm_cross", "fm_cross_bwd", "rows_gather", "rows_write")
+
+
+def feature_job(out_dir):
+    """The feature job on the bundled ratings and movies into `out_dir`:
+    both CSVs byte-equal to the bundled ones, the hand-off loaded by the
+    port's store. Then `build_samples` timed over 1,000,000 synthetic
+    events (138,000 users, 27,000 movies) on a catalog of every movie id,
+    as tools/device_pipeline_bench.py builds it."""
+    import numpy as np
+
+    from sparrowrecsys_torch.data import run as data_run
+    from sparrowrecsys_torch.data.feature_pipeline import build_samples
+    from sparrowrecsys_torch.data.movielens import MovieCatalog
+    from sparrowrecsys_torch.data.synthetic import SyntheticSpec, synthetic_ratings
+    from sparrowrecsys_torch.serving.feature_store import FeatureStore
+
+    t0 = time.perf_counter()
+    data_run.main(["--data-root", os.path.join(REPO, "data"), "--out-dir", out_dir,
+                   "--export-features"])
+    job_s = time.perf_counter() - t0
+    equal = {}
+    for name in ("trainingSamples.csv", "testSamples.csv"):
+        with open(os.path.join(out_dir, name), "rb") as a, \
+                open(os.path.join(REPO, "data", name), "rb") as b:
+            equal[name] = a.read() == b.read()
+    path = os.path.join(out_dir, "feature_store.json")
+    with open(path) as f:
+        hashes = json.load(f)["hashes"]
+    store = FeatureStore.load(path)
+    loaded = sum(store.hgetall(k) == v for k, v in hashes.items())
+
+    spec = SyntheticSpec()
+    t0 = time.perf_counter()
+    ratings = synthetic_ratings(spec)
+    gen_s = time.perf_counter() - t0
+    ids = np.arange(1, spec.n_movies + 1, dtype=np.int32)
+    catalog = MovieCatalog(movie_ids=ids, titles=[f"Movie {i}" for i in ids],
+                           release_years=(1950 + ids % 70).astype(np.int32),
+                           genres=[["Action", "Drama"] if i % 2 else ["Comedy"] for i in ids])
+    t0 = time.perf_counter()
+    table = build_samples(ratings, catalog)
+    build_s = time.perf_counter() - t0
+    report = {"bundled_job_s": job_s, "csv_byte_equal": equal, "store_keys": len(hashes),
+              "store_keys_loaded": loaded, "synthetic_events": len(ratings),
+              "synthetic_ratings_s": gen_s, "build_samples_host_s": build_s,
+              "build_samples_rows": len(table),
+              "build_samples_events_per_s": len(ratings) / build_s}
+    log(f"[offline] feature job: {json.dumps(report)}")
+    if not all(equal.values()):
+        raise AssertionError(f"the feature job's CSVs differ from the bundled ones: {equal}")
+    if not loaded == len(hashes) == STORE_KEYS:
+        raise AssertionError(f"feature store: {loaded} of {len(hashes)} keys loaded, "
+                             f"want {STORE_KEYS}")
+    if not 0 < len(table) <= len(ratings) or len(table.columns) != 27:
+        raise AssertionError(f"build_samples gave {len(table)} rows, {len(table.columns)} columns")
+    return report
+
+
+def state_tensors(params, opt_state):
+    """Every parameter and optimizer-state tensor of a fit, by path."""
+    import torch
+
+    out = {f"params/{k}": v for k, v in params.items()}
+
+    def walk(node, prefix):
+        if isinstance(node, torch.Tensor):
+            out[prefix] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}")
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for k, v in zip(node._fields, node):
+                walk(v, f"{prefix}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}/{i}")
+    walk(opt_state, "opt")
+    return out
+
+
+def max_gap(a, b):
+    """The largest |a - b| over every tensor of two fits' states, and where."""
+    if set(a) != set(b):
+        raise AssertionError(f"the fits' states differ in names: {sorted(set(a) ^ set(b))}")
+    gaps = {k: (a[k].float() - b[k].float()).abs().max().item() if a[k].numel() else 0.0
+            for k in a}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def resume_check(ds, state_dir):
+    """DeepFMv2, both tables on the row-Adam, batch 65536, 2 x 8 steps on
+    the card: two uninterrupted fits, then one epoch into `state_dir` and
+    a fresh Trainer resuming it. Returns the resumed fit's launch counts."""
+    from sparrowrecsys_torch.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, learning_rate=TRAIN_MODELS["deepfm_v2"][3])
+    params = make_trainer("deepfm_v2", cfg).init_params()
+    runs = []
+    for _ in range(2):
+        r = make_trainer("deepfm_v2", cfg).fit(ds, params=params, verbose=False)
+        runs.append(state_tensors(r.params, r.opt_state))
+    t0 = time.perf_counter()
+    make_trainer("deepfm_v2", cfg).fit(ds, params=params, epochs=1, state_dir=state_dir,
+                                       verbose=False)
+    resumed_trainer = make_trainer("deepfm_v2", cfg)
+    reset_counts()
+    r = resumed_trainer.fit(ds, state_dir=state_dir, resume=True, verbose=True)
+    counts = read_counts()
+    resume_s = time.perf_counter() - t0
+    pair, pair_at = max_gap(runs[0], runs[1])
+    gap, gap_at = max_gap(state_tensors(r.params, r.opt_state), runs[0])
+    report = {"tensors": len(runs[0]), "uninterrupted_pair_max_abs_diff": pair,
+              "uninterrupted_pair_worst": pair_at, "resumed_max_abs_diff": gap,
+              "resumed_worst": gap_at, "epochs_resumed": len(r.history),
+              "save_resume_s": resume_s,
+              "resumed_fit_launches": {k: counts[k] for k in RESUME_KERNELS}}
+    log(f"[offline] resume, deepfm_v2 (sparse user and movie tables): {json.dumps(report)}")
+    if len(r.history) != 1:
+        raise AssertionError(f"the resumed fit ran {len(r.history)} epochs, want 1")
+    if not (gap == 0 if pair == 0 else gap <= 2 * pair):
+        raise AssertionError(f"the resumed fit departs from the uninterrupted one by {gap} "
+                             f"({gap_at}); two uninterrupted fits by {pair}")
+    for k in RESUME_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"the resumed fit did not launch {k}")
+    return counts
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def narrow_check(ds):
+    """DeepFM with bfloat16 tables (float32 masters) and bfloat16 moments,
+    batch 65536, 2 x 8 steps, on the card and on the CPU from the same
+    weights: the loss falls and the last AUC beats 0.5; the masters and
+    the float32 params drift from the CPU's within FIT_DRIFT_TOL; each
+    bfloat16 table within one bfloat16 ulp of bf16(master), at the scale
+    of max(|p|, |bf16(master)|, 4 lr) (the rebase rounds a step to
+    bfloat16; an Adam step is at most about 3.2 lr). Then the dtype one
+    DeepFMv2 step with bfloat16 tables hands `fm_cross`."""
+    import torch
+
+    import sparrowrecsys_torch.models.deepfm as deepfm_module
+    from sparrowrecsys_torch.config import TrainConfig
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.training.loop import Trainer
+
+    lr = 1e-3
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, learning_rate=lr,
+                      bf16_table_params=True, big_moment_dtype="bfloat16")
+    trainer = make_trainer("deepfm", cfg)
+    params = trainer.init_params()
+    narrow = [k for k, v in params.items() if v.dtype == torch.bfloat16]
+    card = trainer.fit(ds, params=params, verbose=False)
+    t0 = time.perf_counter()
+    cpu = make_trainer("deepfm", cfg, "cpu").fit(
+        ds, params={k: v.cpu() for k, v in params.items()}, verbose=False)
+    cpu_s = time.perf_counter() - t0
+    hist = card.history
+    state = card.opt_state
+    masters = [m for m in state.master_big if m is not None]
+    cpu_masters = [m for m in cpu.opt_state.master_big if m is not None]
+    init32 = {k: params[k].float().cpu() for k in narrow}
+    drift = {}
+    for k, m, cm in zip(narrow, masters, cpu_masters):
+        moved = (cm - init32[k]).norm().item()
+        drift[f"master/{k}"] = (m.cpu() - cm).norm().item() / moved
+    for k, v in cpu.params.items():
+        if k not in narrow:
+            moved = (v - params[k].cpu()).norm().item()
+            drift[k] = (card.params[k].cpu() - v).norm().item() / moved if moved else 0.0
+    ulps = {}
+    for k, m in zip(narrow, masters):
+        t, target = card.params[k].float(), m.bfloat16().float()
+        mag = torch.maximum(torch.maximum(t.abs(), target.abs()),
+                            torch.full_like(t, 4 * lr))
+        ulps[k] = ((t - target).abs() / 2.0 ** (torch.floor(torch.log2(mag)) - 7)).max().item()
+
+    f32 = make_trainer("deepfm", TrainConfig(batch_size=TRAIN_BATCH))
+    f32_params = f32.init_params()
+    f32_state = f32.init_opt_state(f32_params)
+    report = {
+        "history": hist, "cpu_fit_s": cpu_s, "narrow_leaves": narrow,
+        "drift_max": max(drift.values()),
+        "drift_worst": sorted(drift.items(), key=lambda kv: -kv[1])[:3],
+        "table_vs_bf16_master_ulps_max": max(ulps.values()),
+        "bytes": {"tables_bf16": _nbytes(card.params[k] for k in narrow),
+                  "tables_f32_run": _nbytes(f32_params[k] for k in narrow),
+                  "moments_big_bf16": _nbytes(state.mu_big + state.nu_big),
+                  "moments_big_f32_run": _nbytes(f32_state.mu_big + f32_state.nu_big),
+                  "masters_f32": _nbytes(masters)},
+    }
+    # The dtype DeepFMv2's fields reach fm_cross with, bfloat16 tables on.
+    seen = []
+    real = deepfm_module.fm_cross
+
+    def recording(fields):
+        seen.append(str(fields.dtype))
+        return real(fields)
+
+    # Dense tables: bfloat16 tables with the row-Adam raise.
+    v2 = Trainer(build_model("deepfm_v2"), TrainConfig(batch_size=TRAIN_BATCH,
+                                                       bf16_table_params=True))
+    p2 = v2.init_params()
+    feats, labels, mask = _batch(train_data("deepfm_v2", TRAIN_BATCH), v2.device)
+    deepfm_module.fm_cross = recording
+    try:
+        v2.loss_and_grads(p2, v2.init_opt_state(p2), feats, labels, mask)
+    finally:
+        deepfm_module.fm_cross = real
+    report["deepfm_v2_bf16_tables"] = {
+        "narrow_leaves": [k for k, v in p2.items() if v.dtype == torch.bfloat16],
+        "fm_cross_input_dtype": seen}
+    log(f"[offline] narrow deepfm, card vs cpu: {json.dumps(report)}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"narrow deepfm: the loss did not fall: {hist}")
+    if not hist[-1]["roc_auc"] > 0.5:
+        raise AssertionError(f"narrow deepfm: last epoch's AUC {hist[-1]['roc_auc']} <= 0.5")
+    if not narrow or not report["drift_max"] <= FIT_DRIFT_TOL:
+        raise AssertionError(f"narrow deepfm: drift from the CPU's fit {report['drift_worst']}")
+    if not report["table_vs_bf16_master_ulps_max"] <= 1:
+        raise AssertionError(f"narrow deepfm: a bfloat16 table is {ulps} ulps from its master")
+    if seen != ["torch.float32"]:
+        raise AssertionError(f"deepfm_v2 with bfloat16 tables handed fm_cross {seen}")
+    return report
+
+
+def offline_phase(device: str = "cuda"):
+    """Phase 6. Returns the resumed fit's launch counts."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        t0 = time.perf_counter()
+        samples = os.path.join(tmp, "samples")
+        feature_job(samples)
+        steps = {"feature_job": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        ds = train_data("deepfm_v2", TRAIN_BATCH * TRAIN_STEPS)
+        counts = resume_check(ds, os.path.join(tmp, "state"))
+        steps["resume"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        narrow_check(train_data("deepfm", TRAIN_BATCH * TRAIN_STEPS))
+        steps["narrow"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        csvs = ["--train", os.path.join(samples, "trainingSamples.csv"),
+                "--test", os.path.join(samples, "testSamples.csv")]
+        state, export = os.path.join(tmp, "cli_state"), os.path.join(tmp, "cli_export")
+        run_cli("sparrowrecsys_torch.training.run",
+                ["--model", "deepfm_v2", *csvs, "--state-dir", state, "--epochs", "1"], device)
+        out = run_cli("sparrowrecsys_torch.training.run",
+                      ["--model", "deepfm_v2", *csvs, "--state-dir", state, "--resume",
+                       "--epochs", "2", "--export", export], device)
+        if "resumed train state at epoch 1" not in out or "epoch 1/2" in out \
+                or "epoch 2/2" not in out:
+            raise AssertionError(f"training.run --resume did not continue at epoch 2:\n{out}")
+        metas = []
+        for v in sorted(os.listdir(state)):
+            with open(os.path.join(state, v, "meta.json")) as f:
+                metas.append(json.load(f)["next_epoch"])
+        if metas != [1, 2]:
+            raise AssertionError(f"the CLI's train states hold next_epoch {metas}, want [1, 2]")
+        score_export("deepfm_v2", export, device, serving_inputs())
+        steps["cli"] = time.perf_counter() - t0
+    log(f"[offline] steps in s: {json.dumps(steps)}")
+    return counts
 
 
 def main() -> int:
@@ -1368,18 +1684,25 @@ def main() -> int:
     t0 = time.perf_counter()
     hand_off()
     phase_s["hand_off"] = time.perf_counter() - t0
+
+    # 6. the offline plane
+    t0 = time.perf_counter()
+    offline_counts = offline_phase()
+    phase_s["offline"] = time.perf_counter() - t0
     log(f"[time] phases in s: {json.dumps(phase_s)}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
     counts = dict(trained, fm_cross=serving_counts["fm_cross"],
                   din_attention=serving_counts["din_attention"])
+    counts = {k: v + offline_counts[k] for k, v in counts.items()}
 
-    # 6. summary
+    # 7. summary
     def entry(name, route, source, replaces, rows):
         main_row = rows[0]
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "launches_training": trained[name],
+            "launches_offline": offline_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -1,17 +1,19 @@
-"""MovieLens CSV loaders the serving catalog needs.
+"""MovieLens CSV loaders and writers: copies of
+`sparrowrecsys_tpu/data/movielens.py`.
 
-Copies of `sparrowrecsys_tpu/data/movielens.py::load_movies` and
-`load_links`, and `load_ratings`, a numpy parser that takes the place of
-the JAX package's C++ loader (`native.load_ratings_native`), whose
-library is built on demand and not part of a checkout.
+`load_ratings` is a numpy parser (the JAX package's `--native` C++
+loader is not ported). `write_ratings_csv` writes what the JAX package
+writes without pandas (its pandas branch writes "3.0" for a rating of 3;
+`data/ratings.csv` has "3").
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import os
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -29,9 +31,18 @@ class MovieCatalog:
     titles: List[str]
     release_years: np.ndarray          # int32 [M]
     genres: List[List[str]]
+    #: movieId -> row; built from movie_ids when not given
+    id_to_row: Optional[Dict[int, int]] = None
+
+    def __post_init__(self) -> None:
+        if self.id_to_row is None:
+            self.id_to_row = {int(m): i for i, m in enumerate(self.movie_ids)}
 
     def __len__(self) -> int:
         return len(self.movie_ids)
+
+    def row(self, movie_id: int) -> Optional[int]:
+        return self.id_to_row.get(int(movie_id))
 
 
 def parse_release_year(title: str) -> Tuple[str, int]:
@@ -90,3 +101,35 @@ def load_ratings(path: str) -> Ratings:
     )
     return Ratings(rows["u"].copy(), rows["m"].copy(), rows["r"].copy(),
                    rows["t"].copy())
+
+
+def ratings_from_samples_csv(path: str) -> Ratings:
+    """Recover the rating events from a 27-column sample CSV: its first
+    four columns are genuine (movieId, userId, rating, timestamp) events.
+    Duplicate (user, movie, timestamp) triples are dropped, first kept."""
+    rows = _read_csv(path)
+    n = len(rows)
+    u = np.empty(n, dtype=np.int32)
+    m = np.empty(n, dtype=np.int32)
+    r = np.empty(n, dtype=np.float32)
+    t = np.empty(n, dtype=np.int64)
+    for i, row in enumerate(rows):
+        m[i] = int(row[0])
+        u[i] = int(row[1])
+        r[i] = float(row[2])
+        t[i] = int(row[3])
+    key = np.stack([u.astype(np.int64), m.astype(np.int64), t], axis=1)
+    _, first = np.unique(key, axis=0, return_index=True)
+    keep = np.sort(first)
+    return Ratings(u[keep], m[keep], r[keep], t[keep])
+
+
+def write_ratings_csv(ratings: Ratings, path: str) -> None:
+    """`userId,movieId,rating,timestamp` with a header; a rating as "%g"."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["userId", "movieId", "rating", "timestamp"])
+        for i in range(len(ratings)):
+            w.writerow([int(ratings.user_ids[i]), int(ratings.movie_ids[i]),
+                        f"{float(ratings.ratings[i]):g}", int(ratings.timestamps[i])])

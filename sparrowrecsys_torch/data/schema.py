@@ -1,9 +1,11 @@
-"""The 27-column sample schema: a copy of the parts of
-`sparrowrecsys_tpu/data/schema.py` the serving assembler and the training
-data need."""
+"""The 27-column sample schema: a copy of `sparrowrecsys_tpu/data/schema.py`.
+
+The header of the reference's `testSamples.csv` is the contract between
+the feature job (`data/feature_pipeline.py`) and the model zoo."""
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 from typing import Dict, List
 
@@ -40,6 +42,9 @@ NUMERIC_COLUMNS = [
 #: Extra numerics produced by the pipeline but unused by the reference zoo.
 EXTRA_NUMERIC_COLUMNS = ["userAvgReleaseYear", "userReleaseYearStddev"]
 
+_TWO_DECIMALS = ("movieAvgRating", "movieRatingStddev", "userAvgRating",
+                 "userRatingStddev", "userReleaseYearStddev")
+
 
 @dataclasses.dataclass
 class SampleTable:
@@ -54,3 +59,29 @@ class SampleTable:
 
     def __getitem__(self, key: str) -> np.ndarray:
         return self.columns[key]
+
+    def select(self, idx: np.ndarray) -> "SampleTable":
+        return SampleTable({k: v[idx] for k, v in self.columns.items()})
+
+    def to_csv(self, path: str, genre_vocab) -> None:
+        """Write the reference CSV format: genre strings, '' for a missing
+        history id or genre, two decimals for the averages and stddevs."""
+        cols = self.columns
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(SAMPLE_COLUMNS)
+            for i in range(len(self)):
+                row = []
+                for c in SAMPLE_COLUMNS:
+                    v = cols[c][i]
+                    if c in GENRE_COLUMNS:
+                        row.append(genre_vocab[int(v)] if int(v) >= 0 else "")
+                    elif c in HISTORY_COLUMNS:
+                        row.append(str(int(v)) if int(v) > 0 else "")
+                    elif c in _TWO_DECIMALS:
+                        row.append(f"{float(v):.2f}")
+                    elif c == "rating":
+                        row.append(f"{float(v):g}")
+                    else:
+                        row.append(str(int(v)))
+                w.writerow(row)

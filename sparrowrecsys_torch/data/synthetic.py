@@ -1,23 +1,59 @@
-"""Synthetic CTR datasets with a planted signal: copies of
-`sparrowrecsys_tpu/data/synthetic.py::synthetic_ctr_dataset` (:63) and
-`synthetic_sequence_ctr_dataset` (:95) with the helpers they need.
+"""Synthetic datasets with a planted signal: copies of
+`sparrowrecsys_tpu/data/synthetic.py::synthetic_ratings` (:22-60, rating
+events at MovieLens-20M's user and movie counts for the feature job),
+`synthetic_ctr_dataset` (:63) and `synthetic_sequence_ctr_dataset` (:95)
+with the helpers they need.
 
 numpy only: the same arguments give the same rows in both packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 
 from sparrowrecsys_torch.data.dataset import EncodedDataset
+from sparrowrecsys_torch.data.movielens import Ratings
 
 _GENRE_COLS = ("userGenre1", "userGenre2", "userGenre3", "userGenre4",
                "userGenre5", "movieGenre1", "movieGenre2", "movieGenre3")
 _NUMERIC_COLS = ("releaseYear", "movieRatingCount", "movieAvgRating",
                  "movieRatingStddev", "userRatingCount", "userAvgRating",
                  "userRatingStddev")
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticSpec:
+    n_users: int = 138_000     # MovieLens-20M scale
+    n_movies: int = 27_000
+    n_events: int = 1_000_000
+    latent_dim: int = 8
+    #: per-user / per-movie rating-bias scales (MovieLens-like marginals:
+    #: without them every engineered user/movie statistic is noise)
+    user_bias_scale: float = 0.5
+    movie_bias_scale: float = 0.4
+    #: mean rating; 3.0 puts about half the events over the 3.5 label line
+    base_rating: float = 3.0
+    seed: int = 7
+
+
+def synthetic_ratings(spec: SyntheticSpec = SyntheticSpec()) -> Ratings:
+    """Events drawn from a planted biased low-rank preference model:
+    rating ~ clipped affine of (user bias + movie bias + latent dot)."""
+    rng = np.random.default_rng(spec.seed)
+    uf = rng.normal(size=(spec.n_users, spec.latent_dim)).astype(np.float32)
+    vf = rng.normal(size=(spec.n_movies, spec.latent_dim)).astype(np.float32)
+    ub = (spec.user_bias_scale * rng.normal(size=spec.n_users)).astype(np.float32)
+    mb = (spec.movie_bias_scale * rng.normal(size=spec.n_movies)).astype(np.float32)
+    u = rng.integers(1, spec.n_users + 1, spec.n_events).astype(np.int32)
+    m = rng.integers(1, spec.n_movies + 1, spec.n_events).astype(np.int32)
+    affinity = np.einsum("nd,nd->n", uf[u - 1], vf[m - 1]) / np.sqrt(spec.latent_dim)
+    score = spec.base_rating + ub[u - 1] + mb[m - 1] + affinity
+    r = np.clip(np.round((score + 0.3 * rng.normal(size=spec.n_events)) * 2) / 2, 0.5, 5.0)
+    t = rng.integers(1_000_000_000, 1_600_000_000, spec.n_events).astype(np.int64)
+    return Ratings(u, m, r.astype(np.float32), t)
 
 
 def synthetic_ctr_dataset(

@@ -22,7 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparrowrecsys_torch.config import EMBEDDING_DIM, GENRE_VOCAB
-from sparrowrecsys_torch.ops.embedding import embed_lookup, uniform_embed_init
+from sparrowrecsys_torch.ops.embedding import (
+    embed_lookup,
+    packed_multi_lookup,
+    uniform_embed_init,
+)
 
 GENRE_COLS = (
     "userGenre1", "userGenre2", "userGenre3", "userGenre4", "userGenre5",
@@ -106,6 +110,19 @@ def merged_embed_bias(
     merged = torch.cat([emb_table, bias_col.to(emb_table.dtype)], dim=1)
     out = embed_lookup(merged, idx)
     return out[..., :-1], out[..., -1]
+
+
+def packed_embed_bias(columns):
+    """`merged_embed_bias` for several id columns riding one gather
+    (`models/features.py::packed_embed_bias`, :148-170).
+
+    columns: (emb_table [V, D], bias_col [V, 1], idx [B]) each. Each
+    table is merged with its bias column into [V, D+1], and all of them
+    go through one `packed_multi_lookup`. Returns a list of
+    (embedding [B, D], bias [B]) pairs, equal to `merged_embed_bias`'s."""
+    merged = [torch.cat([emb, bias.to(emb.dtype)], dim=1) for emb, bias, _ in columns]
+    outs = packed_multi_lookup(merged, [idx for _, _, idx in columns])
+    return [(o[..., :-1], o[..., -1]) for o in outs]
 
 
 def numeric_stack(

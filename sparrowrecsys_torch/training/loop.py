@@ -8,11 +8,21 @@ optimizer='adam', metrics=[accuracy, ROC-AUC, PR-AUC]); fit(...)` with:
 - the epoch's rows in a given order, padded with dataset row 0 to whole
   batches and masked, as the JAX package's resident epoch does
   (`loop.py:255-265`): the padded rows' ids still count as touched rows of
-  a sparse table, so their lazy-Adam moments decay;
+  a sparse table, so their lazy-Adam moments decay. `shuffle_mode=
+  "blocks"` permutes blocks of `shuffle_block` rows of the epoch padded
+  with zero rows instead (`loop.py:219-252`);
 - `sparse_tables`: the named embedding tables leave the dense optimizer
   and live in a fused [V, 3D] row-Adam buffer (`training/row_optim.py`);
   the step differentiates the buffer's table view and updates only the
-  touched rows, through the row kernels on the card.
+  touched rows, through the row kernels on the card;
+- `bf16_table_params`: the big leaves stored in bfloat16 with float32
+  masters in the optimizer state; `big_moment_dtype` narrows the big
+  leaves' moments (`training/optim.py`);
+- `fit(state_dir=, checkpoint_every=, resume=)`: the whole train state
+  (params, optimizer state, the next epoch) checkpointed in the JAX
+  package's format (`training/checkpoint.py`), so a run resumes from a
+  state either package wrote. The order of epoch e depends on e alone,
+  so a resumed run takes the batches the uninterrupted run takes.
 
 Parameters are a dict of tensors keyed by `state_dict` name, applied with
 `torch.func.functional_call`; `checkpoint.params_to_flax` turns one into
@@ -20,9 +30,9 @@ the JAX package's tree. A `loss_fn` (DIEN's `dien_loss_fn`) takes the
 JAX protocol (`loop.py:76-82`, `:350-363`):
 `loss_fn(forward, params, feats, labels, mask[, generator])` ->
 (loss, (logits, summed masked objective)), with a per-step
-`torch.Generator` when `loss_fn.wants_rng`. Not ported yet, raising
-NotImplementedError (and queued in ROADMAP.md): mesh plans, and
-train-state checkpoints and resume.
+`torch.Generator` when `loss_fn.wants_rng`. Mesh plans
+(`Trainer(plan=)`) raise NotImplementedError; they are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ from sparrowrecsys_torch.config import TrainConfig
 from sparrowrecsys_torch.data.dataset import EncodedDataset
 from sparrowrecsys_torch.models.features import flax_init
 from sparrowrecsys_torch.ops import metrics as M
-from sparrowrecsys_torch.training.optim import grouped_adam
+from sparrowrecsys_torch.training import checkpoint as ckpt
+from sparrowrecsys_torch.training.optim import SMALL_LEAF_MAX_ELEMS, grouped_adam
 from sparrowrecsys_torch.training.row_optim import (
     fused_row_adam_update,
     fused_table,
@@ -68,8 +79,15 @@ def _default_loss(logits, labels, mask):
     return loss_sum / mask.sum().clamp_min(1.0), loss_sum
 
 
-def _queued(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it is queued in ROADMAP.md")
+def _moment_dtype(name: str) -> Optional[torch.dtype]:
+    """TrainConfig.big_moment_dtype -> the torch dtype grouped_adam stores
+    the big leaves' moments in (None for float32)."""
+    if name == "float32":
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"big_moment_dtype={name!r} is not a floating torch dtype")
+    return dtype
 
 
 class Trainer:
@@ -89,11 +107,11 @@ class Trainer:
         device=None,
     ):
         if plan is not None:
-            raise _queued("training over a device mesh (MeshPlan)")
+            raise NotImplementedError(
+                "training over a device mesh (MeshPlan) is not ported yet; "
+                "it is queued in ROADMAP.md")
         self.loss_fn = loss_fn
         self.config = config or TrainConfig()
-        if self.config.shuffle_mode != "exact":
-            raise _queued("shuffle_mode='blocks' (the TPU layout's block shuffle)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         #: {param module name: (feature columns gathering from it, ...)},
@@ -105,8 +123,17 @@ class Trainer:
         }
         self._table_keys = {f"{mod}.table" for mod in self.sparse_tables}
         cfg = self.config
+        if cfg.bf16_table_params and self.sparse_tables:
+            # The JAX package narrows the sparse tables too and then runs
+            # the lazy row-Adam on a bfloat16 [V, 3D] buffer with narrow
+            # moments and no master (ADVICE.md on `training/loop.py:181`).
+            raise ValueError(
+                "bf16_table_params with sparse_tables: the lazy row-Adam "
+                "keeps no float32 master, so the tables would train in bfloat16")
         self.tx = grouped_adam(cfg.learning_rate, b1=cfg.adam_b1, b2=cfg.adam_b2,
-                               eps=cfg.adam_eps)
+                               eps=cfg.adam_eps,
+                               big_moment_dtype=_moment_dtype(cfg.big_moment_dtype),
+                               master_weights=cfg.bf16_table_params)
         #: Datasets at most this large are uploaded to the device once per
         #: fit; larger ones upload each batch.
         self.device_resident_bytes = 2 << 30
@@ -143,9 +170,16 @@ class Trainer:
         """Fresh parameters drawn from the flax initialisers' distributions
         (`models/features.py::flax_init`) by a generator seeded with
         `seed` (default `TrainConfig.seed`). `sample_feats` is accepted
-        for the JAX signature; the shapes come from the model."""
+        for the JAX signature; the shapes come from the model. Under
+        `bf16_table_params` the float32 leaves of at least
+        SMALL_LEAF_MAX_ELEMS elements are stored in bfloat16."""
         seed = self.config.seed if seed is None else seed
-        return flax_init(self.model, torch.Generator().manual_seed(seed), self.device)
+        params = flax_init(self.model, torch.Generator().manual_seed(seed), self.device)
+        if self.config.bf16_table_params:
+            params = {k: v.bfloat16() if v.dtype == torch.float32
+                      and v.numel() >= SMALL_LEAF_MAX_ELEMS else v
+                      for k, v in params.items()}
+        return params
 
     # ------------------------------------------------------------------
     def _forward(self, params, feats):
@@ -197,7 +231,7 @@ class Trainer:
             # The placeholders' (empty) gradients ride along, in the
             # order the dense state was initialised with.
             gdense = {k: v if k in self._table_keys else grads[k] for k, v in params.items()}
-            updates, dstate = self.tx.update(gdense, opt_state["dense"])
+            updates, dstate = self.tx.update(gdense, opt_state["dense"], params)
             rows = {}
             for mod, cols in self.sparse_tables.items():
                 ids = torch.cat([feats[c].reshape(-1).to(torch.int32) for c in cols])
@@ -208,7 +242,7 @@ class Trainer:
                 )
             opt_state = {"dense": dstate, "rows": rows}
         else:
-            updates, opt_state = self.tx.update(grads, opt_state)
+            updates, opt_state = self.tx.update(grads, opt_state, params)
         for k, v in params.items():
             if k not in self._table_keys:
                 v.add_(updates[k])
@@ -224,32 +258,69 @@ class Trainer:
         return params, opt_state, mstate
 
     # ------------------------------------------------------------------
+    def _use_blocks(self, padded: int) -> bool:
+        """Whether the epoch is shuffled by blocks: `shuffle_mode="blocks"`,
+        a shuffled run, and a padded epoch of whole blocks. Otherwise the
+        exact shuffle (`loop.py:232-236`)."""
+        cfg = self.config
+        return (cfg.shuffle_each_epoch and cfg.shuffle_mode == "blocks"
+                and padded % cfg.shuffle_block == 0)
+
     def _epoch_order(self, n: int, padded: int, epoch: int, orders) -> tuple:
         """(row order [padded] int64, valid mask [padded] float32) on the
-        device: `orders[epoch]` when given, else a permutation from a
-        generator seeded with seed + epoch (arange without shuffle), its
-        tail padded with row 0 (`loop.py:255-265`)."""
+        device, for epoch `epoch` alone.
+
+        Exact: `orders[epoch]` (n row indices) when given, else a
+        permutation from a generator seeded with seed + epoch (arange
+        without shuffle), its tail padded with row 0 (`loop.py:255-265`).
+        Blocks: the epoch padded with zero rows to `padded` is cut into
+        blocks of `shuffle_block` rows, which move in the order
+        `orders[epoch]` (the JAX package's
+        `jax.random.permutation(PRNGKey(seed + epoch), padded // block)`)
+        or a permutation from the generator; the pad rows are row n of
+        the columns (a zero row, see `_columns`), and the mask moves with
+        them (`loop.py:238-253`)."""
         cfg = self.config
+        gen = torch.Generator().manual_seed(cfg.seed + epoch)
+        if self._use_blocks(padded):
+            block = cfg.shuffle_block
+            nb = padded // block
+            if orders is not None:
+                border = torch.from_numpy(np.array(orders[epoch], dtype=np.int64))
+                if border.shape != (nb,):
+                    raise ValueError(f"orders[{epoch}] has shape {tuple(border.shape)}, "
+                                     f"want the block order ({nb},)")
+            else:
+                border = torch.randperm(nb, generator=gen)
+            pos = (border[:, None] * block + torch.arange(block)).reshape(-1)
+            valid = pos < n
+            return torch.where(valid, pos, n).to(self.device), valid.float().to(self.device)
         if orders is not None:
             order = torch.from_numpy(np.array(orders[epoch], dtype=np.int64))
             if order.shape != (n,):
                 raise ValueError(f"orders[{epoch}] has shape {tuple(order.shape)}, want ({n},)")
         elif cfg.shuffle_each_epoch:
-            order = torch.randperm(n, generator=torch.Generator().manual_seed(cfg.seed + epoch))
+            order = torch.randperm(n, generator=gen)
         else:
             order = torch.arange(n)
         order = torch.cat([order, torch.zeros(padded - n, dtype=torch.int64)])
         valid = torch.arange(padded) < n
         return order.to(self.device), valid.float().to(self.device)
 
-    def _columns(self, ds: EncodedDataset):
+    def _columns(self, ds: EncodedDataset, zero_row: bool = False):
         """The dataset's columns and labels as tensors: on the device when
-        they fit `device_resident_bytes`, else on the host."""
+        they fit `device_resident_bytes`, else on the host. `zero_row`
+        appends one all-zero row (row n: the block shuffle's pad row)."""
         nbytes = sum(v.nbytes for v in ds.features.values()) + ds.labels.nbytes
         dev = self.device if nbytes <= self.device_resident_bytes else torch.device("cpu")
-        cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in ds.features.items()}
-        return cols, torch.from_numpy(np.ascontiguousarray(ds.labels)).to(dev)
+
+        def tensor(v):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if zero_row:
+                t = torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
+            return t.to(dev)
+
+        return {k: tensor(v) for k, v in ds.features.items()}, tensor(ds.labels)
 
     def _gather(self, cols, labels, idx):
         idx = idx.to(labels.device)
@@ -269,39 +340,62 @@ class Trainer:
         batch_size: Optional[int] = None,
         verbose: bool = True,
         state_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
         resume: bool = False,
         orders: Optional[Sequence[Any]] = None,
     ) -> TrainResult:
         """Train; returns a TrainResult with the steady-state examples/s
-        (the epochs after the first, or the whole run when it has one).
+        (the epochs after the first this call runs, or all of them when it
+        runs one).
 
-        `orders`: an optional row order per epoch (`orders[epoch]`, n row
-        indices), e.g. the JAX package's
-        `jax.random.permutation(PRNGKey(seed + epoch), n)`; without it the
-        order comes from a torch.Generator seeded with seed + epoch.
-        The caller's `params` are copied, not changed."""
-        if state_dir is not None or resume:
-            raise _queued("train-state checkpointing and resume (state_dir/resume)")
+        `state_dir`: the whole train state (params, optimizer state, the
+        next epoch) is saved there after every `checkpoint_every` epochs
+        and after the last (`checkpoint.save_train_state`; keeps
+        `TrainConfig.checkpoint_keep` versions). `resume=True` restores
+        the newest state there and continues at its epoch; with no
+        version there at all it starts cold, and a params-only export
+        raises `checkpoint.NotATrainStateError`.
+
+        `orders`: an optional order per epoch (`orders[epoch]`: n row
+        indices, or under the block shuffle the block order), e.g. the
+        JAX package's `jax.random.permutation(PRNGKey(seed + epoch), n)`;
+        without it the order comes from a torch.Generator seeded with
+        seed + epoch. Either way epoch e's order depends on e alone, so a
+        resumed run replays the uninterrupted run's batches.
+        The caller's `params` are copied, not changed; their dtypes stay."""
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         batch_size = cfg.batch_size if batch_size is None else batch_size
         if params is None:
             params = self.init_params(train.features)
-        params = {k: v.to(self.device, torch.float32).clone() for k, v in params.items()}
+        params = {k: v.to(self.device).clone() for k, v in params.items()}
         opt_state = self.init_opt_state(params)
         if self.sparse_tables:
             params = self._dense_view(params)
+        start_epoch = 0
+        if resume and state_dir:
+            try:
+                params, opt_state, start_epoch, _ = ckpt.load_latest_train_state(
+                    state_dir, self.model, params, opt_state)
+                if verbose:
+                    print(f"resumed train state at epoch {start_epoch}")
+            except FileNotFoundError:
+                pass  # no version at all: a cold start
 
-        cols, labels_all = self._columns(train)
         n = len(train)
         steps = -(-n // batch_size)
         padded = steps * batch_size
+        if cfg.shuffle_mode == "blocks" and padded % cfg.shuffle_block != 0:
+            print(f"shuffle_mode='blocks' requested but padded epoch size {padded} "
+                  f"is not a multiple of shuffle_block={cfg.shuffle_block}; "
+                  "falling back to exact shuffle")
+        cols, labels_all = self._columns(train, zero_row=self._use_blocks(padded))
         wants_rng = bool(getattr(self.loss_fn, "wants_rng", False))
         history = []
         timed_examples = 0
         t0 = time.perf_counter()
         t_steady = None
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             mstate = M.init_metrics(self.device)
             order, valid = self._epoch_order(n, padded, epoch, orders)
             for s in range(steps):
@@ -321,6 +415,10 @@ class Trainer:
                 print(f"epoch {epoch + 1}/{epochs}: loss={em['loss']:.4f} "
                       f"acc={em['accuracy']:.4f} roc_auc={em['roc_auc']:.4f} "
                       f"pr_auc={em['pr_auc']:.4f}")
+            done = epoch + 1
+            if state_dir and (done == epochs or (checkpoint_every and done % checkpoint_every == 0)):
+                ckpt.save_train_state(self.model, params, opt_state, done, state_dir,
+                                      keep=cfg.checkpoint_keep)
         if self.sparse_tables:
             params = self._materialize_tables(params, opt_state)
         self._sync()
@@ -328,7 +426,7 @@ class Trainer:
         if timed_examples > 0:
             rate = timed_examples / max(end - t_steady, 1e-9)
         else:
-            rate = n * epochs / max(end - t0, 1e-9)
+            rate = n * len(history) / max(end - t0, 1e-9)
 
         eval_metrics = None
         if test is not None:

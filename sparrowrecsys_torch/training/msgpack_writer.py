@@ -5,9 +5,11 @@ The counterpart of `msgpack_reader.py`: `packb` encodes a tree as
 ndarray extension), so the JAX package's `checkpoint.load_latest`
 restores what the port exports. It packs:
 
-- dicts (maps with their keys sorted, as flax's tree map leaves them),
-  str, ints (the smallest msgpack int that holds them), floats (float64),
-  bytes, and lists and tuples;
+- dicts: maps with their keys sorted, as flax's tree map leaves them,
+  except an `OrderedDict`, which keeps its order (flax writes a
+  NamedTuple's fields and a list's indices in order);
+- str, None (nil: a `master_big` entry), ints (the smallest msgpack int
+  that holds them), floats (float64), bytes, and lists and tuples;
 - numpy arrays and torch tensors as ext code 1: a packed
   `(shape, dtype name, raw bytes in C order)` triple. bfloat16 tensors,
   which numpy lacks, are written as their raw 2-byte words.
@@ -19,6 +21,7 @@ Leaves above 2**30 bytes, which flax splits into chunks, raise
 from __future__ import annotations
 
 import struct
+from collections import OrderedDict
 from typing import Any, List
 
 import numpy as np
@@ -65,7 +68,7 @@ def _sized(out: List[bytes], n: int, fix: int, fix_max: int, codes) -> None:
 def _array_payload(value: Any) -> bytes:
     """flax's ext-1 payload: packb((shape, dtype name, raw bytes))."""
     if isinstance(value, np.ndarray):
-        arr = np.ascontiguousarray(value)
+        arr = np.asarray(value, order="C")  # keeps a 0-d leaf 0-d (a step count)
         shape, name, raw = arr.shape, arr.dtype.name, arr.tobytes("C")
     else:  # a torch tensor
         import torch
@@ -83,9 +86,11 @@ def _array_payload(value: Any) -> bytes:
 
 
 def _pack(out: List[bytes], v: Any) -> None:
-    if isinstance(v, bool):
+    if v is None:
+        out.append(b"\xc0")
+    elif isinstance(v, bool):
         raise TypeError("bool is not part of a flax param tree")
-    if isinstance(v, (int, np.integer)):
+    elif isinstance(v, (int, np.integer)):
         _int(out, int(v))
     elif isinstance(v, (float, np.floating)):
         out.append(b"\xcb" + struct.pack(">d", float(v)))
@@ -98,7 +103,7 @@ def _pack(out: List[bytes], v: Any) -> None:
         out.append(bytes(v))
     elif isinstance(v, dict):
         _sized(out, len(v), 0x80, 16, {">H": 0xDE, ">I": 0xDF})
-        for k in sorted(v):
+        for k in (v if isinstance(v, OrderedDict) else sorted(v)):
             _pack(out, k)
             _pack(out, v[k])
     elif isinstance(v, (list, tuple)):

@@ -11,8 +11,11 @@ shows 12 sample predictions like the reference scripts
 history columns added (seeds 2020 for train, 2021 for test, as the
 reference's) and with `dien_loss_fn()`.
 
---state-dir, --resume and --config raise NotImplementedError until the
-train-state slice lands (ROADMAP.md).
+--config FILE takes the `data` and `train` sections of a config file
+either package's `config_to_json` wrote (flags given on the command line
+take precedence). --state-dir DIR checkpoints the whole train state there
+every --checkpoint-every epochs, in the JAX package's format; --resume
+continues from the newest state there (a JAX-written one too).
 """
 
 from __future__ import annotations
@@ -36,22 +39,21 @@ def main(argv=None) -> None:
     ap.add_argument("--test", default=None, help="testSamples.csv path")
     ap.add_argument("--standardize", action="store_true",
                     help="z-score numerics with train stats (non-parity)")
-    ap.add_argument("--config", default=None, help="not ported yet")
+    ap.add_argument("--config", default=None,
+                    help="JSON config file (config_from_json); flags take precedence")
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--export", default=None, metavar="DIR",
                     help="export a versioned checkpoint: DIR/NNN/params.msgpack + meta.json")
-    ap.add_argument("--state-dir", default=None, help="not ported yet")
-    ap.add_argument("--resume", action="store_true", help="not ported yet")
+    ap.add_argument("--state-dir", default=None, metavar="DIR",
+                    help="checkpoint the whole train state (params, Adam moments, "
+                    "the next epoch) here every --checkpoint-every epochs")
+    ap.add_argument("--checkpoint-every", type=int, default=1)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest state under --state-dir and continue")
     ap.add_argument("--cpu", action="store_true", help="train on the CPU instead of cuda")
     args = ap.parse_args(argv)
 
-    for flag, value in (("--config", args.config), ("--state-dir", args.state_dir),
-                        ("--resume", args.resume)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} waits for the train-state slice; it is queued in ROADMAP.md")
-
-    from sparrowrecsys_torch.config import DataConfig, TrainConfig
+    from sparrowrecsys_torch.config import DataConfig, TrainConfig, config_from_json
     from sparrowrecsys_torch.data.dataset import encode_samples, load_samples, standardize
     from sparrowrecsys_torch.data.negatives import add_dien_negatives
     from sparrowrecsys_torch.models import build_model
@@ -59,7 +61,11 @@ def main(argv=None) -> None:
     from sparrowrecsys_torch.training.checkpoint import params_to_flax, save
     from sparrowrecsys_torch.training.loop import Trainer
 
-    data = DataConfig() if args.data_root is None else DataConfig(data_root=args.data_root)
+    file_cfg = config_from_json(args.config) if args.config else None
+    if args.data_root is not None:
+        data = DataConfig(data_root=args.data_root)
+    else:
+        data = file_cfg.data if file_cfg else DataConfig()
     train_ds = encode_samples(load_samples(args.train or data.path("trainingSamples.csv")))
     test_ds = encode_samples(load_samples(args.test or data.path("testSamples.csv")))
     if args.standardize:
@@ -71,7 +77,7 @@ def main(argv=None) -> None:
         test_ds = add_dien_negatives(test_ds, seed=2021)
         loss_fn = dien_loss_fn()
 
-    base = TrainConfig()
+    base = file_cfg.train if file_cfg else TrainConfig()
     overrides = {"batch_size": args.batch_size or (12 if args.parity else base.batch_size)}
     if args.epochs is not None:
         overrides["epochs"] = args.epochs
@@ -82,7 +88,8 @@ def main(argv=None) -> None:
     cfg = dataclasses.replace(base, **overrides)
     model = build_model(args.model)
     trainer = Trainer(model, cfg, loss_fn=loss_fn, device="cpu" if args.cpu else None)
-    result = trainer.fit(train_ds, test=test_ds)
+    result = trainer.fit(train_ds, test=test_ds, state_dir=args.state_dir,
+                         checkpoint_every=args.checkpoint_every, resume=args.resume)
 
     if args.export:
         vdir = save(params_to_flax(result.params, model), args.export,

@@ -71,23 +71,22 @@ def test_train_config_carries_every_field_and_default():
     ref = {f.name: f.default for f in dataclasses.fields(jax_config.TrainConfig)}
     assert got == ref
     assert TrainConfig().adam_eps == 1e-7
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(bf16_table_params=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(big_moment_dtype="bfloat16")
+    # Ported: the narrow dtypes construct (they raised before).
+    assert TrainConfig(bf16_table_params=True, big_moment_dtype="bfloat16").bf16_table_params
     with pytest.raises(ValueError, match="shuffle_mode"):
         TrainConfig(shuffle_mode="typo")
 
 
 def test_trainer_raises_for_what_is_not_ported():
+    """Mesh plans still raise; the block shuffle and train-state
+    checkpoints, which raised before, are ported (tests/test_torch_narrow.py,
+    tests/test_torch_train_state.py)."""
     model = build_model("deepfm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, plan=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, TrainConfig(shuffle_mode="blocks"), device="cpu")
-    ds = tsyn.synthetic_ctr_dataset(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, device="cpu").fit(ds, state_dir="unused", epochs=1)
+    Trainer(model, TrainConfig(shuffle_mode="blocks"), device="cpu")
+    with pytest.raises(ValueError, match="big_moment_dtype"):
+        Trainer(model, TrainConfig(big_moment_dtype="int8"), device="cpu")
 
 
 def test_trainer_defaults_to_cuda_and_raises_without_it():
