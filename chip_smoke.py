@@ -54,7 +54,22 @@ Phases, each fatal on failure:
    DeepFMv2 with bfloat16 tables hands `fm_cross`; then `training.run`
    trains a DeepFMv2 on the job's CSVs into a state dir, resumes it for a
    second epoch, exports, and the serving scorer ranks a wave with it.
-7. summary: one {"kernels": [...]} line, then the last line,
+7. candidate generation (`[cands]` lines, no kernel of its own): item2vec
+   on the bundled ratings against the CPU replaying the card's draws and
+   findSynonyms(158) on both; item2vec over SyntheticSpec()'s 1,000,000
+   events (pairs/s, two runs compared bit for bit, the planted-structure
+   quality beside the JAX package's) and a planted-signal run at 300,000
+   events; DeepWalk's dense walker on the bundled graph and CSR walker on
+   the synthetic one (every step on an edge, card = CPU on one draw,
+   walks/s) and the graph embedding's SGNS; `embedding.run` on the card
+   into a temporary data root that the port's server then serves the
+   `emb` paths from; ALS card against CPU on the bundled 80/20 split
+   (ms/iteration, recommendations) and chunked against direct sums at
+   1,000,000 events; the retrieval trainer card against CPU, then
+   `tools.recall_eval` on the card beside recall.json; prepared top-k at
+   Q=256, D=64, k=10 over 100,000 and 1,000,000 items (float32 and
+   bfloat16).
+8. summary: one {"kernels": [...]} line, then the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -1608,6 +1623,510 @@ def offline_phase(device: str = "cuda"):
     return counts
 
 
+# ---- phase 7 -----------------------------------------------------------------
+
+#: JAX's `tools/emb_scale.py --events 1000000 --epochs 2 --batch-size 8192`
+#: on a CPU (the reference's quality, not a speed): the planted cosine of
+#: the SGNS neighbours and of random pairs, at SyntheticSpec()'s 138,000
+#: users and 27,000 movies; no planted signal at that depth.
+JAX_SCALE_QUALITY = {"neighbor_planted_cos": -0.0114, "random_pair_cos": -0.0101}
+#: The same tool at 3,000 users, 800 movies and 300,000 events, 2 epochs:
+#: a planted signal (margin 0.1657).
+DENSE_SPEC = (3000, 800, 300_000)
+JAX_DENSE_QUALITY = {"neighbor_planted_cos": 0.1692, "random_pair_cos": 0.0035}
+#: The port's planted margin at DENSE_SPEC must be at least this (the
+#: reference's is 0.1657), and at SyntheticSpec() its planted cosine
+#: within SCALE_QUALITY_TOL of the reference's (4 standard errors of the
+#: difference of two means over 2,560 neighbour pairs of 8-dim unit latents).
+DENSE_MARGIN = 0.10
+SCALE_QUALITY_TOL = 0.04
+#: Prepared top-k: queries per wave, width, k and catalog sizes.
+TOPK_Q, TOPK_D, TOPK_K = 256, 64, 10
+TOPK_SIZES = (100_000, 1_000_000)
+#: ALS's chunked sums at 1,000,000 synthetic events, chunk lowered to this.
+ALS_PHASE_CHUNK = 250_000
+#: ALS card against CPU, and chunked against direct sums: predictions
+#: within ALS_PRED_TOL of their largest magnitude, factors within
+#: ALS_FACTOR_TOL of theirs, RMSE within ALS_RMSE_TOL. Rank 10 at reg 0.01
+#: leaves users and items with one or two ratings ill-conditioned: the
+#: port and the JAX package, both float32 on a CPU, part by 9.9e-4 of
+#: scale in the user factors of the bundled split and 4.9e-4 in its test
+#: predictions, while their RMSEs agree to 1.3e-6
+#: (tests/test_torch_als.py::test_bundled_split_within_the_card_gates).
+ALS_PRED_TOL = 2e-3
+ALS_RMSE_TOL = 1e-4
+ALS_FACTOR_TOL = 1e-2
+
+
+def cands(msg: str) -> None:
+    log(f"[cands] {msg}")
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def cuda_seconds(fn, device: str = "cuda"):
+    """(result, wall s) of fn() between two device synchronisations."""
+    import torch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def sgns_schedule(n_pairs, counts, cfg, device):
+    """The initial table, epoch orders and per-step negatives, drawn on
+    `device` in the order `train_sgns` draws them from its own generator."""
+    import torch
+
+    from sparrowrecsys_torch.embedding import item2vec as I
+
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    packed = I.pack_alias(*I.build_alias_table(counts ** 0.75), device=device)
+    init = (torch.rand((len(counts), cfg.dim), generator=gen, device=device)
+            * (1.0 / cfg.dim) - 0.5 / cfg.dim)
+    bs, steps = I.sgns_shape(n_pairs, cfg.batch_size)
+    orders, negatives = [], []
+    for _ in range(cfg.epochs):
+        orders.append(I.epoch_order(n_pairs, cfg.batch_size, gen).cpu().numpy())
+        negatives.append(torch.stack([I.alias_draw(packed, (bs, cfg.negatives), gen)
+                                      for _ in range(steps)]).cpu().numpy())
+    return init.cpu().numpy(), orders, negatives
+
+
+def untied_ids_equal(got, want, scores, gap: float = 1e-5) -> bool:
+    """Two rankings name the same id at every position, except where the
+    reference's score there is within `gap` of a neighbour's (a near-tie
+    that rounding may swap)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b and not any(abs(scores[i] - scores[j]) <= gap
+                              for j in (i - 1, i + 1) if 0 <= j < len(scores)):
+            return False
+    return len(got) == len(want)
+
+
+def item2vec_checks(ratings, syn, device):
+    """Bundled item2vec card against the CPU replay, synonyms, the scale
+    run (pairs/s, two runs, quality) and the planted-signal run."""
+    import dataclasses
+
+    import numpy as np
+
+    from sparrowrecsys_torch.data.synthetic import SyntheticSpec, synthetic_ratings
+    from sparrowrecsys_torch.embedding import item2vec as I
+    from sparrowrecsys_torch.tools.emb_quality import neighbor_quality, planted_item_latents
+
+    cfg = I.Item2VecConfig()
+    seqs = I.build_item_sequences(ratings)
+    c, x, vocab, counts = I.skipgram_pairs(seqs, cfg.window)
+    bs, steps = I.sgns_shape(len(c), cfg.batch_size)
+    if (len(seqs), len(vocab), len(c), steps) != (2672, 625, 11406, 1):
+        raise AssertionError(f"bundled pairs: {len(seqs)} sequences, V={len(vocab)}, "
+                             f"{len(c)} pairs, {steps} steps")
+    card, secs = cuda_seconds(
+        lambda: I.train_sgns(c, x, len(vocab), counts, cfg, device=device), device)
+    init, orders, negatives = sgns_schedule(len(c), counts, cfg, device)
+    cpu = I.train_sgns(c, x, len(vocab), counts, cfg, device="cpu", init=init,
+                       orders=orders, negatives=negatives)
+    gap = rel_gap(card, cpu)
+    cands(f"item2vec bundled: {len(seqs)} sequences, V={len(vocab)}, {len(c)} pairs, "
+          f"{cfg.epochs} epochs x {steps} step(s) of {bs} in {secs:.3f} s on the card; "
+          f"card vs the CPU replaying the card's draws: {gap:.3e} of scale")
+    if not np.isfinite(card).all() or gap > 1e-4:
+        raise AssertionError(f"item2vec bundled: card vs CPU replay {gap}")
+    got = I.find_synonyms(vocab, card, 158, 20, device=device)
+    want = I.find_synonyms(vocab, card, 158, 20, device="cpu")
+    if len(got) != 20 or not untied_ids_equal([m for m, _ in got], [m for m, _ in want],
+                                                [s for _, s in want]):
+        raise AssertionError(f"findSynonyms(158): card {got} cpu {want}")
+    cands(f"findSynonyms(158, 20) card = CPU where untied: {[m for m, _ in got[:8]]}...")
+
+    # At scale: SyntheticSpec(), 2 epochs, the scatter branch's vocabulary.
+    spec = SyntheticSpec()
+    sseqs = I.build_item_sequences(syn)
+    sc, sx, svocab, scounts = I.skipgram_pairs(sseqs, cfg.window)
+    scfg = dataclasses.replace(cfg, epochs=2)
+    _, ssteps = I.sgns_shape(len(sc), scfg.batch_size)
+    runs = []
+    for _ in range(2):
+        runs.append(cuda_seconds(
+            lambda: I.train_sgns(sc, sx, len(svocab), scounts, scfg, device=device), device))
+    (emb, secs), (emb2, secs2) = runs
+    rate = scfg.epochs * len(sc) / secs2
+    same = bool(np.array_equal(emb, emb2))
+    quality = neighbor_quality(svocab, emb, planted_item_latents(spec), device=device)
+    cands(f"item2vec at scale: V={len(svocab)}, {len(sc)} pairs, {ssteps} steps/epoch x "
+          f"{scfg.epochs}: {secs:.3f} s then {secs2:.3f} s = {rate:.0f} pairs/s; two runs "
+          f"bit-equal: {same} (gap {rel_gap(emb2, emb):.3e} of scale); quality {quality} "
+          f"(JAX on a CPU: {JAX_SCALE_QUALITY})")
+    if (len(svocab), len(sc), ssteps) != (26989, 1386630, 169):
+        raise AssertionError(f"synthetic pairs: V={len(svocab)}, {len(sc)} pairs, {ssteps}")
+    if abs(quality["neighbor_planted_cos"]
+           - JAX_SCALE_QUALITY["neighbor_planted_cos"]) > SCALE_QUALITY_TOL:
+        raise AssertionError(f"item2vec at scale: quality {quality}")
+
+    dspec = SyntheticSpec(*DENSE_SPEC)
+    dseqs = I.build_item_sequences(synthetic_ratings(dspec))
+    dc, dx, dvocab, dcounts = I.skipgram_pairs(dseqs, cfg.window)
+    demb, dsecs = cuda_seconds(
+        lambda: I.train_sgns(dc, dx, len(dvocab), dcounts, scfg, device=device), device)
+    dq = neighbor_quality(dvocab, demb, planted_item_latents(dspec), device=device)
+    margin = dq["neighbor_planted_cos"] - dq["random_pair_cos"]
+    cands(f"item2vec planted signal at {DENSE_SPEC}: {len(dc)} pairs x 2 epochs in "
+          f"{dsecs:.3f} s; quality {dq}, margin {margin:.4f} (JAX on a CPU: "
+          f"{JAX_DENSE_QUALITY}; required >= {DENSE_MARGIN})")
+    if margin < DENSE_MARGIN:
+        raise AssertionError(f"item2vec planted margin {margin}")
+    return {"bundled_s": secs, "pairs_per_s": rate, "bit_equal_runs": same,
+            "quality": quality, "dense_quality": dq}, vocab, card
+
+
+def walk_edges_ok(walks, vocab, src_dst_keys) -> bool:
+    """Every step of every walk is an edge of the graph."""
+    import numpy as np
+
+    v = len(vocab)
+    steps = [np.searchsorted(vocab, w) for w in walks if len(w) > 1]
+    if not steps:
+        return True
+    a = np.concatenate([s[:-1] for s in steps]).astype(np.int64)
+    b = np.concatenate([s[1:] for s in steps]).astype(np.int64)
+    return bool(np.isin(a * v + b, src_dst_keys).all())
+
+
+def deepwalk_checks(ratings, syn, device):
+    """The dense walker on the bundled graph, the CSR walker on the
+    synthetic one: edges, card = CPU on the same draws, walks/s, and the
+    graph embedding's SGNS."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sparrowrecsys_torch.embedding import deepwalk as D
+    from sparrowrecsys_torch.embedding.item2vec import (
+        build_item_sequences,
+        skipgram_pairs,
+        train_sgns,
+    )
+
+    cfg = D.DeepWalkConfig()
+    out = {}
+    for label, seqs in (("dense, bundled", build_item_sequences(ratings)),
+                        ("csr, synthetic", build_item_sequences(syn))):
+        vocab, src, dst = D.adjacent_pairs(seqs)
+        keys = np.unique(src.astype(np.int64) * len(vocab) + dst)
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        if label.startswith("dense"):
+            _, trans, dist = D.transition_matrix(seqs)
+            start, u = D.walk_draws(dist, cfg.sample_count, cfg.sample_length, gen)
+            cdf, dead = D.dense_cdf(trans), dist == 0
+
+            def walk(dev):
+                return D.walk_dense(torch.from_numpy(cdf).to(dev),
+                                    torch.from_numpy(dead).to(dev), start.to(dev), u.to(dev))
+            whole = lambda: D.random_walks(seqs, cfg, device)[1]  # noqa: E731
+        else:
+            csr = D.transition_csr(seqs)
+            start, u = D.walk_draws(csr.item_dist, cfg.sample_count, cfg.sample_length, gen)
+            iters = D.bisect_iters(csr.rowptr)
+
+            def walk(dev):
+                t = [torch.from_numpy(a).to(dev) for a in (csr.rowptr, csr.dst, csr.cum)]
+                return D.walk_csr(*t, start.to(dev), u.to(dev), iters)
+            whole = lambda: D.random_walks_csr(csr, cfg, device)  # noqa: E731
+        (card_w, card_v), dev_s = cuda_seconds(lambda: walk(device), device)
+        cpu_w, cpu_v = walk("cpu")
+        if not (torch.equal(card_w.cpu(), cpu_w) and torch.equal(card_v.cpu(), cpu_v)):
+            raise AssertionError(f"deepwalk {label}: card and CPU walks differ on one draw")
+        walks, secs = cuda_seconds(whole, device)
+        dense = len(vocab) <= D.DENSE_WALK_MAX_VOCAB
+        if dense != label.startswith("dense") or (not dense and len(keys) != 289697):
+            raise AssertionError(f"deepwalk {label}: V={len(vocab)}, {len(keys)} edges")
+        lengths = np.array([len(w) for w in walks])
+        if len(walks) != cfg.sample_count or not walk_edges_ok(walks, vocab, keys):
+            raise AssertionError(f"deepwalk {label}: a step off the graph")
+        cands(f"deepwalk {label}: V={len(vocab)}, {len(keys)} distinct edges; "
+              f"{cfg.sample_count} walks of <= {cfg.sample_length}: walker "
+              f"{cfg.sample_count / dev_s:.0f} walks/s on the card, "
+              f"{cfg.sample_count / secs:.0f} walks/s with the host's truncation; mean "
+              f"length {lengths.mean():.3f}; every step on an edge; card = CPU on one draw")
+        out[label] = {"walks_per_s": cfg.sample_count / secs,
+                      "walker_walks_per_s": cfg.sample_count / dev_s}
+        if label.startswith("dense"):
+            # The shipped config (10 epochs of 8,192) ends non-finite on this
+            # graph in both packages (the JAX package's train_deepwalk too;
+            # data/modeldata/itemGraphEmb.csv is all NaN); 2 epochs stay finite.
+            wc, wx, wv, wcounts = skipgram_pairs(walks, cfg.item2vec.window)
+            for epochs in (2, cfg.item2vec.epochs):
+                icfg = dataclasses.replace(cfg.item2vec, epochs=epochs)
+                emb, ssecs = cuda_seconds(
+                    lambda: train_sgns(wc, wx, len(wv), wcounts, icfg, device=device), device)
+                rate = epochs * len(wc) / ssecs
+                finite = bool(np.isfinite(emb).all())
+                cands(f"deepwalk graph embedding: V={len(wv)}, {len(wc)} pairs x {epochs} "
+                      f"epochs in {ssecs:.3f} s = {rate:.0f} pairs/s; finite: {finite}")
+                if epochs == 2 and not finite:
+                    raise AssertionError("deepwalk graph embedding at 2 epochs is not finite")
+            out["graph_sgns_pairs_per_s"] = rate
+    return out
+
+
+def hand_off_emb(vocab, table, device):
+    """`embedding.run` on the card writes the `emb` files into a temporary
+    data root; the port's server started on that root answers the `emb`
+    paths; an LSH index over the card's table answers as over the table
+    read back from its file."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sparrowrecsys_torch.embedding.artifacts import load_embeddings_csv, write_embeddings_csv
+    from sparrowrecsys_torch.embedding.lsh import LSHIndex
+    from sparrowrecsys_torch.serving.server import server_from_args
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        for name in ("movies.csv", "links.csv", "ratings.csv"):
+            shutil.copy(os.path.join(REPO, "data", name), os.path.join(root, name))
+        out_dir = os.path.join(root, "modeldata")
+        t0 = time.perf_counter()
+        run_cli("sparrowrecsys_torch.embedding.run",
+                ["--graph-emb", "--user-emb", "--data-root", root, "--out-dir", out_dir], device)
+        job_s = time.perf_counter() - t0
+        sizes = {n: len(load_embeddings_csv(os.path.join(out_dir, n)))
+                 for n in ("item2vecEmb.csv", "itemGraphEmb.csv", "userEmb.csv")}
+        users = load_embeddings_csv(os.path.join(out_dir, "userEmb.csv"))
+        server = server_from_args(["--data-root", root] + (["--cpu"] if device == "cpu" else []))
+        server.port = 0
+        server.start()
+        try:
+            base = f"http://localhost:{server.port}"
+            user = next(iter(users))
+            answers = {}
+            for path in ("/getsimilarmovie?movieId=158&size=16&model=emb",
+                         f"/getrecforyou?id={user}&size=32&model=emb"):
+                status, body = _get(base + path)
+                movies = json.loads(body) if body else []
+                if status != 200 or not movies or not all("movieId" in m for m in movies):
+                    raise AssertionError(f"{path}: status {status}, {body[:200]!r}")
+                answers[path] = len(movies)
+        finally:
+            server.stop()
+
+        path = os.path.join(root, "table.csv")
+        write_embeddings_csv(path, vocab, table)
+        back = load_embeddings_csv(path)
+        read = np.stack([back[int(v)] for v in vocab])
+        demo = int(np.flatnonzero(vocab == 158)[0])
+        a, b = LSHIndex(table, vocab), LSHIndex(read, vocab)
+        if not (np.array_equal(a.buckets, b.buckets)
+                and a.query(table[demo], k=5) == b.query(read[demo], k=5)):
+            raise AssertionError("LSH over the card's table differs from its file's")
+    cands(f"hand-off: embedding.run on the card in {job_s:.3f} s wrote {sizes}; the server "
+          f"on that data root answered {answers}; LSH query of 158 = {a.query(table[demo], 5)[:3]}"
+          f"... equal over the table and its file")
+    return {"job_s": job_s, "sizes": sizes}
+
+
+def als_checks(ratings, syn, device):
+    """ALS: the bundled split card against the CPU on the card's initial
+    factors, seconds per iteration, recommendations, and the chunked sums
+    at 1,000,000 events."""
+    import numpy as np
+    import torch
+
+    import sparrowrecsys_torch.models.als as A
+
+    cfg = A.ALSConfig()
+    tr, te = A.split_80_20(ratings)
+    n_u, n_i = len(np.unique(tr.user_ids)), len(np.unique(tr.movie_ids))
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    init = tuple((torch.rand((n, cfg.rank), generator=gen, device=device)
+                  / np.sqrt(cfg.rank)).cpu().numpy() for n in (n_u, n_i))
+    A.train_als(tr, A.ALSConfig(max_iter=1), device)  # the device libraries' first call
+    card, secs = cuda_seconds(lambda: A.train_als(tr, cfg, device), device)
+    cpu = A.train_als(tr, cfg, device="cpu", init=init)
+    gaps = (rel_gap(card.user_factors, cpu.user_factors),
+            rel_gap(card.item_factors, cpu.item_factors))
+    pred_gap = rel_gap(card.transform_drop(te)[0], cpu.transform_drop(te)[0])
+    cands(f"als bundled 80/20: {len(tr)} ratings, {n_u} users x {n_i} items, rank "
+          f"{cfg.rank}, {cfg.max_iter} iterations in {secs:.3f} s = "
+          f"{secs / cfg.max_iter * 1e3:.3f} ms/iteration; RMSE card {card.rmse(te):.6f}, "
+          f"CPU {cpu.rmse(te):.6f}; card vs CPU from the card's initial factors: user "
+          f"{gaps[0]:.3e}, item {gaps[1]:.3e} of scale, test predictions {pred_gap:.3e}")
+    if (max(gaps) > ALS_FACTOR_TOL or pred_gap > ALS_PRED_TOL
+            or abs(card.rmse(te) - cpu.rmse(te)) > ALS_RMSE_TOL):
+        raise AssertionError(f"als card vs cpu: factors {gaps}, predictions {pred_gap}")
+    recs_card = card.recommend_for_all_users(10, device)
+    recs_cpu = card.recommend_for_all_users(10, device="cpu")
+    scores = card.user_factors @ card.item_factors.T
+    bad = [u for row, u in enumerate(card.user_ids)
+           if not untied_ids_equal([m for m, _ in recs_card[int(u)]],
+                                   [m for m, _ in recs_cpu[int(u)]],
+                                   np.sort(scores[row])[::-1][:10])]
+    cands(f"als recommend_for_all_users(10): {len(recs_card)} users, card = CPU where "
+          f"untied ({len(bad)} users differ)")
+    if bad:
+        raise AssertionError(f"als recommendations differ for users {bad[:5]}")
+
+    direct, dsecs = cuda_seconds(lambda: A.train_als(syn, cfg, device), device)
+    keep = A.ALS_CHUNK_EVENTS
+    A.ALS_CHUNK_EVENTS = ALS_PHASE_CHUNK
+    try:
+        chunked, csecs = cuda_seconds(lambda: A.train_als(syn, cfg, device), device)
+    finally:
+        A.ALS_CHUNK_EVENTS = keep
+    cgaps = (rel_gap(chunked.user_factors, direct.user_factors),
+             rel_gap(chunked.item_factors, direct.item_factors))
+    cpred = rel_gap(chunked.predict(syn.user_ids, syn.movie_ids),
+                    direct.predict(syn.user_ids, syn.movie_ids))
+    cands(f"als at {len(syn)} synthetic events: direct {dsecs / cfg.max_iter * 1e3:.3f} "
+          f"ms/iteration, chunks of {ALS_PHASE_CHUNK} {csecs / cfg.max_iter * 1e3:.3f} "
+          f"ms/iteration; chunked vs direct: user {cgaps[0]:.3e}, item {cgaps[1]:.3e} of "
+          f"scale, predictions {cpred:.3e}")
+    if max(cgaps) > ALS_FACTOR_TOL or cpred > ALS_PRED_TOL:
+        raise AssertionError(f"als chunked vs direct: factors {cgaps}, predictions {cpred}")
+    return {"ms_per_iteration": secs / cfg.max_iter * 1e3,
+            "ms_per_iteration_1m": dsecs / cfg.max_iter * 1e3, "gaps": gaps}
+
+
+def retrieval_checks(ratings, device):
+    """The retrieval trainer on the leave-one-out positives, card against
+    the CPU on the card's orders; then the recall twin on the card."""
+    import numpy as np
+    import torch
+
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.tools import recall_eval as R
+    from sparrowrecsys_torch.training.retrieval import RetrievalConfig, RetrievalTrainer
+
+    train, test_pairs, _ = R.leave_one_out_split(ratings)
+    pos = train.ratings >= R.POS_THRESHOLD
+    users, movies = train.user_ids[pos], train.movie_ids[pos]
+    cfg = RetrievalConfig(batch_size=1024, epochs=10, seed=0)
+    n = len(users)
+    steps = n // cfg.batch_size
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    orders = [torch.randperm(n, generator=gen, device=device)[: steps * cfg.batch_size]
+              .cpu().numpy() for _ in range(cfg.epochs)]
+    card_t = RetrievalTrainer(build_model("neuralcf_two_tower", hidden=(32, 32)), cfg, device)
+    losses = []
+    card, secs = cuda_seconds(lambda: card_t.fit_pairs(users, movies, losses=losses), device)
+    cpu_t = RetrievalTrainer(build_model("neuralcf_two_tower", hidden=(32, 32)), cfg,
+                             device="cpu")
+    cpu = cpu_t.fit_pairs(users, movies, orders=orders)
+    gap = max(rel_gap(card[k].cpu().numpy(), cpu[k].numpy()) for k in cpu)
+    rate = cfg.epochs * steps * cfg.batch_size / secs
+    cands(f"retrieval: {n} positive pairs, {steps} steps of {cfg.batch_size} x {cfg.epochs} "
+          f"epochs in {secs:.3f} s = {rate:.0f} examples/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; card vs the CPU on the card's orders: {gap:.3e} of scale")
+    if gap > 1e-3 or not losses[-1] < losses[0]:
+        raise AssertionError(f"retrieval: gap {gap}, losses {losses}")
+
+    with open(os.path.join(REPO, "recall.json")) as f:
+        ref = json.load(f)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        path = os.path.join(tmp, "recall.json")
+        t0 = time.perf_counter()
+        run_cli("sparrowrecsys_torch.tools.recall_eval", ["--json-out", path], device)
+        recall_s = time.perf_counter() - t0
+        with open(path) as f:
+            got = json.load(f)
+    m = got["n_test"]
+    parts = []
+    for key in ("popularity", "item2vec", "two_tower_retrieval", "two_tower_ctr", "tuned_blend"):
+        p = got[key]
+        parts.append(f"{key} {p:.4f} +- {math.sqrt(p * (1 - p) / m):.4f} "
+                     f"(recall.json {ref[key]:.4f})")
+    cands(f"recall@10 over {m} test users on the card in {recall_s:.3f} s: " + "; ".join(parts)
+          + f"; blend beta {got['tuned_blend_beta']}")
+    if got["popularity"] != ref["popularity"]:
+        raise AssertionError(f"popularity recall {got['popularity']} != {ref['popularity']}")
+    if not got["two_tower_retrieval"] > 3 * 10 / 1001:
+        raise AssertionError(f"two-tower retrieval recall {got['two_tower_retrieval']}")
+    return {"examples_per_s": rate, "gap": gap, "recall": got}
+
+
+def topk_checks(device):
+    """Prepared top-k at Q=256, D=64, k=10 over 100,000 and 1,000,000
+    items in float32 and 1,000,000 in bfloat16: CUDA-event ms, float32
+    prepared = unprepared, bfloat16's recall@10 against float32."""
+    import torch
+
+    from sparrowrecsys_torch.ops import topk as K
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for m in TOPK_SIZES:
+        items = torch.randn((m, TOPK_D), generator=gen, device=device)
+        queries = torch.randn((TOPK_Q, TOPK_D), generator=gen, device=device)
+        prep = K.prepare_catalog(items)
+        s, i = K.cosine_topk_prepared(queries, prep, TOPK_K)
+        us, ui = K.cosine_topk(queries, items, TOPK_K)
+        if not (torch.equal(i, ui) and torch.equal(s, us)):
+            raise AssertionError(f"top-k at {m}: float32 prepared differs from unprepared")
+        row = {
+            "prepared_ms": timed(lambda: K.cosine_topk_prepared(queries, prep, TOPK_K), 10),
+            "unprepared_ms": timed(lambda: K.cosine_topk(queries, items, TOPK_K), 10),
+        }
+        scores = K.cosine_scores(queries, items)
+        row["top_k_ms"] = timed(lambda: K.top_k(scores, TOPK_K), 10)
+        row["torch_topk_ms"] = timed(lambda: torch.topk(scores, TOPK_K), 10)
+        del scores
+        if m == TOPK_SIZES[-1]:
+            prep16 = K.prepare_catalog(items, torch.bfloat16)
+            s16, i16 = K.cosine_topk_prepared(queries, prep16, TOPK_K)
+            if s16.dtype != torch.float32:
+                raise AssertionError(f"bfloat16 catalog scored in {s16.dtype}")
+            hits = sum(len(set(a) & set(b)) for a, b in zip(i16.tolist(), i.tolist()))
+            row["bf16_ms"] = timed(lambda: K.cosine_topk_prepared(queries, prep16, TOPK_K), 10)
+            row["bf16_recall_at_10"] = hits / (TOPK_Q * TOPK_K)
+            del prep16
+        cands(f"prepared top-k Q={TOPK_Q} D={TOPK_D} k={TOPK_K} M={m}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + "; float32 prepared = unprepared")
+        out[m] = row
+        del items, prep
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def candidates_phase(device: str = "cuda"):
+    """Phase 7: the candidate-generation plane on the card (`device="cpu"`
+    rehearses its control flow on the CPU)."""
+    from sparrowrecsys_torch.data.movielens import load_ratings
+    from sparrowrecsys_torch.data.synthetic import synthetic_ratings
+
+    ratings = load_ratings(os.path.join(REPO, "data", "ratings.csv"))
+    syn = synthetic_ratings()
+    steps = {}
+    t0 = time.perf_counter()
+    report, vocab, table = item2vec_checks(ratings, syn, device)
+    steps["item2vec"] = time.perf_counter() - t0
+    for name, fn in (("deepwalk", lambda: deepwalk_checks(ratings, syn, device)),
+                     ("hand_off", lambda: hand_off_emb(vocab, table, device)),
+                     ("als", lambda: als_checks(ratings, syn, device)),
+                     ("retrieval", lambda: retrieval_checks(ratings, device)),
+                     ("topk", lambda: topk_checks(device))):
+        t0 = time.perf_counter()
+        report[name] = fn()
+        steps[name] = time.perf_counter() - t0
+    cands(f"steps in s: {json.dumps(steps)}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -1689,6 +2208,12 @@ def main() -> int:
     t0 = time.perf_counter()
     offline_counts = offline_phase()
     phase_s["offline"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # 7. the candidate-generation plane
+    t0 = time.perf_counter()
+    candidates_phase()
+    phase_s["candidates"] = time.perf_counter() - t0
     log(f"[time] phases in s: {json.dumps(phase_s)}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
@@ -1696,7 +2221,7 @@ def main() -> int:
                   din_attention=serving_counts["din_attention"])
     counts = {k: v + offline_counts[k] for k, v in counts.items()}
 
-    # 7. summary
+    # 8. summary
     def entry(name, route, source, replaces, rows):
         main_row = rows[0]
         return {
