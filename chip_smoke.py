@@ -48,7 +48,8 @@ Phases, each fatal on failure:
    (batch 65536, 2 x 8 steps) interrupted after one epoch and resumed
    from its train state in a fresh Trainer lands on the uninterrupted
    fit (bit for bit, or within twice the distance between two
-   uninterrupted fits), with the four kernels' launches read around the
+   uninterrupted fits; the three fits run under PyTorch's deterministic
+   algorithms), with the four kernels' launches read around the
    resumed fit; DeepFM with bfloat16 tables, float32 masters and
    bfloat16 moments on the card against the CPU, and the dtype a
    DeepFMv2 with bfloat16 tables hands `fm_cross`; then `training.run`
@@ -69,7 +70,28 @@ Phases, each fatal on failure:
    `tools.recall_eval` on the card beside recall.json; prepared top-k at
    Q=256, D=64, k=10 over 100,000 and 1,000,000 items (float32 and
    bfloat16).
-8. summary: one {"kernels": [...]} line, then the last line,
+8. the rest of the system (`[rest]` lines, no kernel of its own):
+   `build_samples_device` equal to the host's `build_samples` on every
+   column and dtype on the bundled ratings and on phase 6's 1,000,000
+   synthetic events (device columns by CUDA events, the host recompute
+   and the host pipeline in ms); `device_feature_columns` alone at
+   20,000,000 events (MovieLens-20M's count; cut to what phase 6's rate
+   makes in 30 s, if that is less), chunked genre stage against the
+   direct one bit for bit, its peak memory; events at the shipped widths
+   (30,000 users, 1,000 movies, 1,000,000 events) encoded on the card
+   and a DeepFMv2 fit on those tensors, which stay on the card with no
+   room for a host copy (batch 65536, 2 epochs, both tables on the
+   row-Adam; the loss falls, the four kernels' launches
+   read around it, examples/s from the fit and from `utils.StepTimer`);
+   the TF-Serving sidecar over a DeepFMv2 scorer on the card
+   (`RestScorer` scores bit-equal to the in-process ones, requests/s, a
+   new export served within two polls); the port's server ranking with
+   DIN while a nearline stream tails a ratings file into its catalog (a
+   streamed positive rating reaches the next ranked request: staleness
+   in s); the webroot's pages, a poster and two refused paths; and
+   `utils.trace` around five waves (a Chrome trace with the card's
+   kernels).
+9. summary: one {"kernels": [...]} line, then the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -121,20 +143,34 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def timed(fn, iters: int) -> float:
-    """Mean ms of `fn()` over `iters` runs after warm-up, by CUDA events."""
+def event_ms(fn, device: str = "cuda"):
+    """(fn(), ms) of one run between two CUDA events (the host clock on
+    the CPU)."""
     import torch
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
+    if device != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return out, start.elapsed_time(end)
+
+
+def timed(fn, iters: int) -> float:
+    """Mean ms of `fn()` over `iters` runs after warm-up, by CUDA events."""
+    for _ in range(3):
+        fn()
+
+    def runs():
+        for _ in range(iters):
+            fn()
+
+    return event_ms(runs)[1] / iters
 
 
 def device_us(prof) -> dict:
@@ -1359,11 +1395,8 @@ def feature_job(out_dir):
     port's store. Then `build_samples` timed over 1,000,000 synthetic
     events (138,000 users, 27,000 movies) on a catalog of every movie id,
     as tools/device_pipeline_bench.py builds it."""
-    import numpy as np
-
     from sparrowrecsys_torch.data import run as data_run
     from sparrowrecsys_torch.data.feature_pipeline import build_samples
-    from sparrowrecsys_torch.data.movielens import MovieCatalog
     from sparrowrecsys_torch.data.synthetic import SyntheticSpec, synthetic_ratings
     from sparrowrecsys_torch.serving.feature_store import FeatureStore
 
@@ -1386,10 +1419,7 @@ def feature_job(out_dir):
     t0 = time.perf_counter()
     ratings = synthetic_ratings(spec)
     gen_s = time.perf_counter() - t0
-    ids = np.arange(1, spec.n_movies + 1, dtype=np.int32)
-    catalog = MovieCatalog(movie_ids=ids, titles=[f"Movie {i}" for i in ids],
-                           release_years=(1950 + ids % 70).astype(np.int32),
-                           genres=[["Action", "Drama"] if i % 2 else ["Comedy"] for i in ids])
+    catalog = synthetic_catalog(spec.n_movies)
     t0 = time.perf_counter()
     table = build_samples(ratings, catalog)
     build_s = time.perf_counter() - t0
@@ -1406,7 +1436,21 @@ def feature_job(out_dir):
                              f"want {STORE_KEYS}")
     if not 0 < len(table) <= len(ratings) or len(table.columns) != 27:
         raise AssertionError(f"build_samples gave {len(table)} rows, {len(table.columns)} columns")
-    return report
+    return report, {"ratings": ratings, "catalog": catalog, "table": table,
+                    "build_s": build_s, "make_s": gen_s}
+
+
+def synthetic_catalog(n_movies):
+    """A catalog of every movie id 1..n_movies: years 1950-2019, two
+    genres for odd ids and one for even."""
+    import numpy as np
+
+    from sparrowrecsys_torch.data.movielens import MovieCatalog
+
+    ids = np.arange(1, n_movies + 1, dtype=np.int32)
+    return MovieCatalog(movie_ids=ids, titles=[f"Movie {i}" for i in ids],
+                        release_years=(1950 + ids % 70).astype(np.int32),
+                        genres=[["Action", "Drama"] if i % 2 else ["Comedy"] for i in ids])
 
 
 def state_tensors(params, opt_state):
@@ -1445,6 +1489,26 @@ def resume_check(ds, state_dir):
     """DeepFMv2, both tables on the row-Adam, batch 65536, 2 x 8 steps on
     the card: two uninterrupted fits, then one epoch into `state_dir` and
     a fresh Trainer resuming it. Returns the resumed fit's launch counts."""
+    import torch
+
+    # PyTorch's deterministic kernels for these fits: with the default
+    # ones a rare reordering of float sums moves the user table by
+    # 1.14e-5 in one fit and not the other (a resumed fit 1.14e-5 from
+    # two uninterrupted fits 5.96e-8 apart, H100, 700 W), so that the
+    # pair's distance does not bound it; deterministic, the two fits and
+    # the resumed one must agree bit for bit. An op without a
+    # deterministic version raises here (`main` sets the cuBLAS
+    # workspace this mode asks for before any CUDA work).
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _resume_check(ds, state_dir)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _resume_check(ds, state_dir):
+    import torch
+
     from sparrowrecsys_torch.config import TrainConfig
 
     cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, learning_rate=TRAIN_MODELS["deepfm_v2"][3])
@@ -1463,7 +1527,8 @@ def resume_check(ds, state_dir):
     resume_s = time.perf_counter() - t0
     pair, pair_at = max_gap(runs[0], runs[1])
     gap, gap_at = max_gap(state_tensors(r.params, r.opt_state), runs[0])
-    report = {"tensors": len(runs[0]), "uninterrupted_pair_max_abs_diff": pair,
+    report = {"deterministic": torch.are_deterministic_algorithms_enabled(),
+              "tensors": len(runs[0]), "uninterrupted_pair_max_abs_diff": pair,
               "uninterrupted_pair_worst": pair_at, "resumed_max_abs_diff": gap,
               "resumed_worst": gap_at, "epochs_resumed": len(r.history),
               "save_resume_s": resume_s,
@@ -1581,13 +1646,14 @@ def narrow_check(ds):
 
 
 def offline_phase(device: str = "cuda"):
-    """Phase 6. Returns the resumed fit's launch counts."""
+    """Phase 6. Returns the resumed fit's launch counts and the synthetic
+    (ratings, catalog, host table, host build s) of the feature job."""
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
         t0 = time.perf_counter()
         samples = os.path.join(tmp, "samples")
-        feature_job(samples)
+        _, synthetic = feature_job(samples)
         steps = {"feature_job": time.perf_counter() - t0}
 
         t0 = time.perf_counter()
@@ -1620,7 +1686,7 @@ def offline_phase(device: str = "cuda"):
         score_export("deepfm_v2", export, device, serving_inputs())
         steps["cli"] = time.perf_counter() - t0
     log(f"[offline] steps in s: {json.dumps(steps)}")
-    return counts
+    return counts, synthetic
 
 
 # ---- phase 7 -----------------------------------------------------------------
@@ -2127,7 +2193,419 @@ def candidates_phase(device: str = "cuda"):
     return report
 
 
+# ---- phase 8 -----------------------------------------------------------------
+
+#: MovieLens-20M's event count, at SyntheticSpec()'s 138,000 users and
+#: 27,000 movies: the device pipeline's full size.
+FULL_EVENTS = 20_000_000
+#: Host seconds the full events may take to make: beyond that the count
+#: is cut to the largest multiple of 1,000,000 that phase 6's rate fits.
+EVENTS_BUDGET_S = 30.0
+#: Events at the shipped widths: every id inside DeepFMv2's tables of
+#: 30,001 users and 1,001 movies.
+SHIPPED_SPEC = {"n_users": 30_000, "n_movies": 1_000, "n_events": 1_000_000}
+#: Users whose 800 candidates go through the sidecar, and its poll.
+SIDECAR_USERS = 64
+SIDECAR_POLL_S = 0.5
+#: The nearline stream's poll and window (RealTimeFeature.java's 100 ms
+#: and 1 s): a rating reaches a request in about their sum.
+STREAM_POLL_S = 0.1
+STREAM_WINDOW_S = 1.0
+STALENESS_LIMIT_S = 10.0
+TRACE_WAVES = 5
+
+
+def rest(msg: str) -> None:
+    log(f"[rest] {msg}")
+
+
+def tables_differ(got, want) -> list:
+    """The columns of two SampleTables that differ in name, dtype or a value."""
+    import numpy as np
+
+    bad = sorted(set(got.columns) ^ set(want.columns))
+    return bad + [k for k in want.columns if k in got.columns and (
+        got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]))]
+
+
+def full_events(synthetic):
+    """FULL_EVENTS, or the largest multiple of 1,000,000 that phase 6's
+    rate of making events fits into EVENTS_BUDGET_S."""
+    per_million = synthetic["make_s"] / (len(synthetic["ratings"]) / 1e6)
+    return min(FULL_EVENTS, max(1, int(EVENTS_BUDGET_S / per_million)) * 1_000_000)
+
+
+def pipeline_checks(device, synthetic):
+    """`build_samples_device` against the host's `build_samples` on the
+    bundled ratings and on phase 6's 1,000,000 synthetic events, with the
+    device columns' CUDA-event ms, the host recompute's ms and the host
+    pipeline's; then `device_feature_columns` alone at `full_events`, its
+    chunked genre stage held bit for bit against the direct one
+    (`genre_chunk = n`), and the peak memory of the chunked run."""
+    import torch
+
+    from sparrowrecsys_torch.data import device_pipeline as dp
+    from sparrowrecsys_torch.data.feature_pipeline import build_samples
+    from sparrowrecsys_torch.data.movielens import load_movies, load_ratings
+    from sparrowrecsys_torch.data.synthetic import SyntheticSpec, synthetic_ratings
+
+    ratings = load_ratings(os.path.join(REPO, "data", "ratings.csv"))
+    catalog = load_movies(os.path.join(REPO, "data", "movies.csv"))
+    t0 = time.perf_counter()
+    table = build_samples(ratings, catalog)
+    cases = {"bundled": (ratings, catalog, table, time.perf_counter() - t0),
+             "synthetic_1M": (synthetic["ratings"], synthetic["catalog"], synthetic["table"],
+                              synthetic["build_s"])}
+    report = {}
+    for name, (ratings, catalog, table, host_s) in cases.items():
+        dp.device_feature_columns(ratings, catalog, device=device)  # first use
+        cols, dev_ms = event_ms(
+            lambda: dp.device_feature_columns(ratings, catalog, device=device), device)
+        t0 = time.perf_counter()
+        got = dp._host_samples(cols, 2)
+        recompute_ms = (time.perf_counter() - t0) * 1e3
+        bad = tables_differ(got, table)
+        report[name] = {"events": len(ratings), "rows": len(got), "columns": len(got.columns),
+                        "device_columns_ms": dev_ms, "host_recompute_ms": recompute_ms,
+                        "host_build_samples_ms": host_s * 1e3, "columns_differing": bad}
+        rest(f"device pipeline, {name}: {json.dumps(report[name])}")
+        if bad or len(got.columns) != 27:
+            raise AssertionError(f"{name}: build_samples_device differs from build_samples in {bad}")
+
+    n = full_events(synthetic)
+    spec = SyntheticSpec(n_events=n)
+    t0 = time.perf_counter()
+    ratings = synthetic_ratings(spec)
+    make_s = time.perf_counter() - t0
+    catalog = synthetic_catalog(spec.n_movies)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    chunked, chunked_ms = event_ms(
+        lambda: dp.device_feature_columns(ratings, catalog, device=device), device)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    direct, direct_ms = event_ms(lambda: dp.device_feature_columns(
+        ratings, catalog, genre_chunk=n, device=device), device)
+    bad = [k for k in direct if not torch.equal(chunked[k], direct[k])]
+    report["full"] = {"events": n, "cut_from": FULL_EVENTS if n < FULL_EVENTS else None,
+                      "events_make_s": make_s, "chunks": -(-n // dp.GENRE_CHUNK),
+                      "device_columns_ms": chunked_ms, "direct_device_columns_ms": direct_ms,
+                      "max_memory_allocated_bytes": peak, "columns_differing": bad}
+    rest(f"device pipeline, full: {json.dumps(report['full'])}")
+    if bad or n <= dp.GENRE_CHUNK:
+        raise AssertionError(f"at {n} events the chunked genre stage differs from the direct "
+                             f"one in {bad} (chunk {dp.GENRE_CHUNK})")
+    return report
+
+
+def device_fit(device):
+    """Events at SHIPPED_SPEC (with the bundled catalog) become samples on
+    the card (`encode_samples_device`, every feature on `device`) and train
+    DeepFMv2 at batch TRAIN_BATCH, 2 epochs, both tables on the row-Adam;
+    the loss falls and the four kernels launch. Then one more epoch of
+    steps timed by `utils.StepTimer`, each step synchronised. Returns the
+    fit's launch counts."""
+    import torch
+
+    from sparrowrecsys_torch.config import TrainConfig
+    from sparrowrecsys_torch.data.device_pipeline import (
+        device_feature_columns,
+        encode_samples_device,
+    )
+    from sparrowrecsys_torch.data.movielens import load_movies
+    from sparrowrecsys_torch.data.synthetic import SyntheticSpec, synthetic_ratings
+    from sparrowrecsys_torch.ops import metrics as M
+    from sparrowrecsys_torch.utils import StepTimer
+    from sparrowrecsys_torch.utils.profiling import hard_sync
+
+    ratings = synthetic_ratings(SyntheticSpec(**SHIPPED_SPEC))
+    catalog = load_movies(os.path.join(REPO, "data", "movies.csv"))
+    ds, encode_ms = event_ms(
+        lambda: encode_samples_device(device_feature_columns(ratings, catalog, device=device)),
+        device)
+    off = [k for k, v in {**ds.features, "labels": ds.labels}.items()
+           if not isinstance(v, torch.Tensor) or v.device.type != device]
+    if off:
+        raise AssertionError(f"encode_samples_device left {off} off {device}")
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2,
+                      learning_rate=TRAIN_MODELS["deepfm_v2"][3])
+    trainer = make_trainer("deepfm_v2", cfg, device)
+    # Columns that live on the trainer's device stay there whatever their
+    # size: with no room for a host table's copy, the fit must train from
+    # the card-built tensors as they are.
+    trainer.device_resident_bytes = 0
+    reset_counts()
+    res = trainer.fit(ds, verbose=False)
+    counts = read_counts()
+
+    params, opt = _fresh(trainer, res.params)
+    n = len(ds)
+    steps = -(-n // TRAIN_BATCH)
+    cols, labels = trainer._columns(ds)
+    off = [k for k, v in {**cols, "labels": labels}.items() if v.device.type != device]
+    if off:
+        raise AssertionError(f"Trainer._columns moved {off} off {device}")
+    order, valid = trainer._epoch_order(n, steps * TRAIN_BATCH, 2, None)
+    mstate = M.init_metrics(trainer.device)
+    timer = StepTimer(TRAIN_BATCH)
+    timer.mark_sync(labels)
+    for s in range(steps):
+        sl = slice(s * TRAIN_BATCH, (s + 1) * TRAIN_BATCH)
+        feats, lab = trainer._gather(cols, labels, order[sl])
+        params, opt, mstate = trainer._train_step(params, opt, mstate, feats, lab, valid[sl])
+        hard_sync(params)
+        timer.tick()
+    report = {"events": len(ratings), "rows": n, "encode_ms": encode_ms,
+              "feature_device": device, "losses": [h["loss"] for h in res.history],
+              "roc_auc": res.history[-1]["roc_auc"], "fit_examples_per_s": res.examples_per_sec,
+              "steptimer_examples_per_s": timer.examples_per_sec,
+              "launches": {k: counts[k] for k in RESUME_KERNELS}}
+    rest(f"events -> DeepFMv2 on {device} tensors: {json.dumps(report)}")
+    if not res.history[-1]["loss"] < res.history[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {report['losses']}")
+    for k in RESUME_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"the fit on device-built samples did not launch {k}")
+    return counts
+
+
+def sidecar_checks(device):
+    """`ScoringSidecar` over a DeepFMv2 scorer on `device` (the shipped
+    export, copied): `RestScorer.score` of SIDECAR_USERS users x 800
+    candidates gives the in-process scores bit for bit, requests/s at
+    CONCURRENCY, and a new export served within 2 x SIDECAR_POLL_S."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.serving.rankers import ModelScorer, RestScorer
+    from sparrowrecsys_torch.serving.sidecar import ScoringSidecar
+    from sparrowrecsys_torch.training import checkpoint
+
+    asm, users, cands = serving_inputs()
+    users = users[:SIDECAR_USERS]
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        model_dir = os.path.join(tmp, "deepfm_v2")
+        shutil.copytree(os.path.join(REPO, "data", "modeldata", "deepfm_v2"), model_dir)
+        scorer = ModelScorer.from_checkpoint(build_model("deepfm_v2"), model_dir, asm,
+                                             device=device)
+        side = ScoringSidecar(scorer, port=0, poll_s=SIDECAR_POLL_S)
+        side.start()
+        try:
+            client = RestScorer(f"http://localhost:{side.port}/v1/models/recmodel:predict")
+            client.score(users[0], cands)
+            differ = [u for u in users
+                      if not np.array_equal(client.score(u, cands), scorer.score(u, cands))]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(CONCURRENCY) as pool:
+                got = list(pool.map(lambda u: client.score(u, cands), users * 4))
+            wall = time.perf_counter() - t0
+            before = client.score(users[0], cands)
+            old = scorer.version
+            tree = checkpoint.params_to_flax(
+                {k: v * 1.5 for k, v in scorer.model.state_dict().items()}, scorer.model)
+            t0 = time.perf_counter()
+            checkpoint.save(tree, model_dir)
+            while scorer.version == old and time.perf_counter() - t0 < 10 * SIDECAR_POLL_S:
+                time.sleep(0.005)
+            reload_s = time.perf_counter() - t0
+            after = client.score(users[0], cands)
+            report = {"users": len(users), "candidates": len(cands),
+                      "users_not_bit_equal": differ, "requests": len(got),
+                      "requests_per_s": len(got) / wall, "concurrency": CONCURRENCY,
+                      "version": [old, scorer.version], "reload_s": reload_s,
+                      "poll_s": SIDECAR_POLL_S,
+                      "reloaded_scores_bit_equal": bool(np.array_equal(
+                          after, scorer.score(users[0], cands))),
+                      "scores_changed": not np.array_equal(after, before)}
+        finally:
+            side.stop()
+    rest(f"sidecar, deepfm_v2 on {device}: {json.dumps(report)}")
+    if differ or not all(np.isfinite(g).all() and len(g) == len(cands) for g in got):
+        raise AssertionError(f"REST scores differ from the in-process ones for users {differ}")
+    if scorer.version != old + 1 or reload_s > 2 * SIDECAR_POLL_S:
+        raise AssertionError(f"the new export was served after {reload_s} s (version "
+                             f"{scorer.version}), want {old + 1} within {2 * SIDECAR_POLL_S} s")
+    if not report["reloaded_scores_bit_equal"] or not report["scores_changed"]:
+        raise AssertionError("the sidecar does not score with the new export")
+    return report
+
+
+def _raw_get(port: int, path: str):
+    """(status, content type, body) of a GET sent with the path as it is
+    (urllib would resolve a '..')."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        conn.close()
+
+
+def nearline_checks(device):
+    """The port's server ranks with DIN on `device`, and a
+    LatestRatingStream tails a temporary ratings file into its catalog: a
+    positive rating appended for a user reaches the next /getrecforyou
+    (`stream_into_ranker`). Then the webroot on the same server, and
+    `utils.trace` around TRACE_WAVES waves. Returns the stream's report."""
+    import tempfile
+
+    from sparrowrecsys_torch.config import ServingConfig
+    from sparrowrecsys_torch.models import build_model
+    from sparrowrecsys_torch.serving.rankers import ModelScorer
+    from sparrowrecsys_torch.serving.server import RecSysServer
+
+    asm, users, cands = serving_inputs()
+    scorer = ModelScorer.from_checkpoint(
+        build_model("din"), os.path.join(REPO, "data", "modeldata", "din"), asm, device=device)
+    server = RecSysServer(asm.dm, ServingConfig(port=0, model_poll_s=0),
+                          scorers={"din": scorer}, device=device)
+    server.start()
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+            report = stream_into_ranker(server, scorer, users, cands, tmp)
+            webroot_checks(server)
+            trace_checks(scorer, users, cands, server.rec_for_you.model_batch, tmp, device)
+    finally:
+        server.stop()
+    return report
+
+
+def stream_into_ranker(server, scorer, users, cands, tmp):
+    """A LatestRatingStream on a new ratings file in `tmp`, attached to the
+    server's catalog; a positive rating appended for a user, then ranked
+    requests until one reflects it."""
+    import numpy as np
+
+    from sparrowrecsys_torch.nearline.stream import (
+        FileWatchSource,
+        LatestRatingStream,
+        attach_to_store,
+    )
+
+    asm = scorer.assembler
+    path = os.path.join(tmp, "ratings.csv")
+    with open(path, "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+    stream = LatestRatingStream(FileWatchSource(path, interval=STREAM_POLL_S),
+                                window_seconds=STREAM_WINDOW_S, sink=lambda e: None)
+    attach_to_store(stream, server.dm)
+    stream.start()
+    try:
+        server.warmup()
+        user = next(u for u in users if asm.user_row(u)["userRatedMovie1"] > 0)
+        first = asm.user_row(user)["userRatedMovie1"]
+        movie = next(m for m in cands if m != first)
+        url = f"http://localhost:{server.port}/getrecforyou?id={user}&size=32&model=din"
+        before = scorer.score(user, cands)
+        before_body = _get(url)[1]
+        time.sleep(2 * STREAM_POLL_S)  # the source's first poll skips the header
+        with open(path, "a") as f:
+            f.write(f"{user},{movie},5.0,{int(time.time())}\n")
+        t_append = time.perf_counter()
+        requests = 0
+        while True:
+            reflected = asm.user_row(user)["userRatedMovie1"] == movie
+            status, body = _get(url)
+            requests += 1
+            staleness = time.perf_counter() - t_append
+            if status != 200 or len(json.loads(body)) != 32:
+                raise AssertionError(f"{url}: status {status}")
+            if reflected or staleness > STALENESS_LIMIT_S:
+                break
+            time.sleep(0.02)
+    finally:
+        stream.stop()
+    row = asm.user_row(user)
+    after = scorer.score(user, cands)
+    report = {"user": user, "movie": movie, "history_before": first,
+              "history_after": [row[f"userRatedMovie{k}"] for k in range(1, 6)],
+              "staleness_s": staleness, "requests_until_reflected": requests,
+              "poll_s": STREAM_POLL_S, "window_s": STREAM_WINDOW_S,
+              "din_scores_max_change": float(np.abs(after - before).max()),
+              "ranking_changed": body != before_body}
+    rest(f"nearline into the live DIN ranker on {scorer.device}: {json.dumps(report)}")
+    if not reflected or row["userRatedMovie2"] != first:
+        raise AssertionError(f"the streamed rating did not reach user {user}'s history "
+                             f"within {STALENESS_LIMIT_S} s: {report}")
+    if np.array_equal(after, before):
+        raise AssertionError("the DIN scores did not change with the streamed rating")
+    return report
+
+
+def webroot_checks(server):
+    """The pages byte for byte, a poster as SVG, paths outside the webroot 404."""
+    web = {}
+    for path, name in (("/", "index.html"), ("/index.html", "index.html"),
+                       ("/js/recsys.js", "js/recsys.js")):
+        status, _, body = _raw_get(server.port, path)
+        with open(os.path.join(server.webroot, name), "rb") as f:
+            web[path] = status == 200 and body == f.read()
+    status, ctype, body = _raw_get(server.port, "/posters/1.jpg")
+    web["/posters/1.jpg"] = (status, ctype) == (200, "image/svg+xml") and body.startswith(b"<svg")
+    for path in ("/../", "/../server.py", "/webroot_x"):
+        web[path] = _raw_get(server.port, path)[0] == 404
+    rest(f"webroot: {json.dumps(web)}")
+    if not all(web.values()):
+        raise AssertionError(f"webroot checks failed: {web}")
+
+
+def trace_checks(scorer, users, cands, k, tmp, device):
+    """`utils.trace` around TRACE_WAVES [k x 800] waves writes one Chrome
+    trace with the waves' events (the card's kernels among them)."""
+    import glob
+
+    from sparrowrecsys_torch.utils import trace
+
+    scorer.prepare_wave(cands, k)
+    log_dir = os.path.join(tmp, "trace")
+    with trace(log_dir):
+        for _ in range(TRACE_WAVES):
+            scorer.score_wave(users[:k])
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    events = []
+    for p in files:
+        with open(p) as f:
+            events += json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    prof = {"files": len(files), "bytes": sum(os.path.getsize(p) for p in files),
+            "events": len(events), "device_kernel_events": kernels, "waves": TRACE_WAVES}
+    rest(f"utils.trace around {TRACE_WAVES} DIN waves: {json.dumps(prof)}")
+    if len(files) != 1 or not events or (device == "cuda" and not kernels):
+        raise AssertionError(f"trace() wrote no Chrome trace of the waves: {prof}")
+
+
+def rest_phase(device: str = "cuda", synthetic=None):
+    """Phase 8: the feature pipeline on the card, events to a trained model
+    without a host table, the sidecar, the nearline stream into the live
+    ranker, the webroot and profiling. Returns the fit's launch counts."""
+    steps = {}
+    t0 = time.perf_counter()
+    pipeline_checks(device, synthetic)
+    steps["device_pipeline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = device_fit(device)
+    steps["device_fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sidecar_checks(device)
+    steps["sidecar"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nearline_checks(device)
+    steps["nearline_webroot_trace"] = time.perf_counter() - t0
+    rest(f"steps in s: {json.dumps(steps)}")
+    return counts
+
+
 def main() -> int:
+    # The cuBLAS workspace that phase 6's deterministic fits ask for, set
+    # before any CUDA work: on sm_90 it is PyTorch's default size (8
+    # buffers of 4 MiB), so the other phases run as they would without it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2206,7 +2684,7 @@ def main() -> int:
 
     # 6. the offline plane
     t0 = time.perf_counter()
-    offline_counts = offline_phase()
+    offline_counts, synthetic = offline_phase()
     phase_s["offline"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
@@ -2214,20 +2692,26 @@ def main() -> int:
     t0 = time.perf_counter()
     candidates_phase()
     phase_s["candidates"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # 8. the rest of the system
+    t0 = time.perf_counter()
+    rest_counts = rest_phase(synthetic=synthetic)
+    phase_s["rest"] = time.perf_counter() - t0
     log(f"[time] phases in s: {json.dumps(phase_s)}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
     counts = dict(trained, fm_cross=serving_counts["fm_cross"],
                   din_attention=serving_counts["din_attention"])
-    counts = {k: v + offline_counts[k] for k, v in counts.items()}
+    counts = {k: v + offline_counts[k] + rest_counts[k] for k, v in counts.items()}
 
-    # 8. summary
+    # 9. summary
     def entry(name, route, source, replaces, rows):
         main_row = rows[0]
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "launches_training": trained[name],
-            "launches_offline": offline_counts[name],
+            "launches_offline": offline_counts[name], "launches_rest": rest_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -6,11 +6,13 @@ the movie side, encoded as the offline pipeline encodes samples: genre
 string -> 19-vocab index with -1 for OOV or missing, history '' -> 0,
 numerics float.
 
-The JAX assembler also shifts a nearline real-time event into the
-history (`_apply_realtime`) and rebuilds its cached movie block when the
-store or the catalog is written. In the port nothing writes either
-after load (the nearline stream is not ported yet, ROADMAP.md), so the
-shift is not ported and the cache is keyed on the candidate ids alone.
+Nearline: when the stream (`nearline/stream.py::attach_to_store`) has
+recorded a fresher positive event for the user, the assembler shifts
+its movie into `userRatedMovie1` (history most-recent-first,
+`FeatureEngForRecModel.scala:99-107`), so the model sees behaviour the
+offline snapshot predates. The movie-block cache is keyed on the
+candidate ids, the store's write counter and the candidates' total
+rating count, so a store write or a catalog `add_rating` rebuilds it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ from sparrowrecsys_torch.serving.feature_store import (
 )
 
 _GENRE_TO_IDX = {g: i for i, g in enumerate(GENRE_VOCAB)}
+
+#: Only ratings >= 3.5 enter the behaviour history (`addSampleLabel`,
+#: FeatureEngForRecModel.scala:27-37).
+_POSITIVE_RATING = 3.5
 
 USER_INT_COLS = tuple(HISTORY_COLUMNS)
 USER_GENRE_COLS = ("userGenre1", "userGenre2", "userGenre3", "userGenre4",
@@ -61,14 +67,15 @@ class FeatureAssembler:
     """Assembles the online feature dict for one user x N candidates.
 
     store: the `mf:`/`uf:` FeatureStore; dm: optional DataManager for the
-    movie-side catalog fallback when a movie has no `mf:` hash."""
+    movie-side catalog fallback when a movie has no `mf:` hash and for the
+    nearline real-time history shift."""
 
     def __init__(self, store: FeatureStore, dm=None) -> None:
         self.store = store
         self.dm = dm
         # Every ranked request re-assembles the same top-800 candidate
-        # rows, so the movie block is cached, keyed on the candidate ids
-        # (one (ids, block) tuple: one assignment, safe across threads).
+        # rows, so the movie block is cached as one (key, block) tuple:
+        # one assignment, safe across threads.
         self._movie_block = (None, None)
 
     def user_row(self, user_id: int) -> Dict[str, float]:
@@ -80,7 +87,26 @@ class FeatureAssembler:
             row[c] = _genre_idx(h.get(c))
         for c in USER_FLOAT_COLS:
             row[c] = _f(h.get(c))
+        if self.dm is not None:
+            self._apply_realtime(user_id, row)
         return row
+
+    def _apply_realtime(self, user_id: int, row: Dict[str, float]) -> None:
+        """Shift the stream's latest positive event into userRatedMovie1;
+        not for a rating under 3.5, nor when that movie is already first."""
+        user = self.dm.get_user_by_id(user_id)
+        feats = user.user_features if user is not None else None
+        if not feats:
+            return
+        latest = _i(feats.get("latestMovieId"))
+        if latest <= 0 or latest == row[HISTORY_COLUMNS[0]]:
+            return
+        rating = feats.get("latestMovieRating")
+        if rating not in (None, "") and _f(rating) < _POSITIVE_RATING:
+            return
+        for k in range(len(HISTORY_COLUMNS) - 1, 0, -1):
+            row[HISTORY_COLUMNS[k]] = row[HISTORY_COLUMNS[k - 1]]
+        row[HISTORY_COLUMNS[0]] = latest
 
     def movie_row(self, movie_id: int) -> Dict[str, float]:
         h = self.store.hgetall(f"{MOVIE_FEATURE_PREFIX}{movie_id}")
@@ -128,10 +154,18 @@ class FeatureAssembler:
         return feats
 
     def movie_block(self, movie_ids: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
-        """([n, 3] int32 genre indices, [n, 4] float32 numerics), cached."""
+        """([n, 3] int32 genre indices, [n, 4] float32 numerics), cached
+        until the store or the candidates' ratings change."""
         ids = tuple(int(m) for m in movie_ids)
-        key, block = self._movie_block
-        if key == ids:
+        stat = 0
+        if self.dm is not None:
+            for mid in ids:
+                m = self.dm.get_movie_by_id(mid)
+                if m is not None:
+                    stat += m.rating_number
+        key = (ids, self.store.mutations, stat)
+        cached, block = self._movie_block
+        if cached == key:
             return block
         n = len(ids)
         mg = np.full((n, len(MOVIE_GENRE_COLS)), -1, np.int32)
@@ -144,5 +178,5 @@ class FeatureAssembler:
                 mf[j, k] = float(row[c])
         mg.setflags(write=False)
         mf.setflags(write=False)
-        self._movie_block = (ids, (mg, mf))
+        self._movie_block = (key, (mg, mf))
         return mg, mf

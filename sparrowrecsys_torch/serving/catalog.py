@@ -107,6 +107,9 @@ class User:
     lowest_rating: float = 5.0
     rating_count: int = 0
     emb: Optional[np.ndarray] = None
+    #: the `uf:` features the nearline stream writes (`latestMovieId`,
+    #: `latestMovieRating`), which the assembler's real-time shift reads
+    user_features: Optional[Dict[str, str]] = None
 
     def add_rating(self, rating: Rating) -> None:
         self.ratings.append(rating)

@@ -36,10 +36,14 @@ class FeatureStore:
         self._hashes: Dict[str, Dict[str, str]] = {}
         self._strings: Dict[str, str] = {}
         self._expiry: Dict[str, float] = {}
+        #: Write counter: caches derived from the store (the assembler's
+        #: movie block) key on it, so any hset or set invalidates them.
+        self.mutations = 0
 
     # ---- the Redis-shaped API ----------------------------------------------
     def hset(self, key: str, mapping: Dict[str, str], ttl: Optional[float] = None) -> None:
         with self._lock:
+            self.mutations += 1
             self._hashes[key] = {k: str(v) for k, v in mapping.items()}
             self._set_expiry(key, ttl)
 
@@ -51,6 +55,7 @@ class FeatureStore:
 
     def set(self, key: str, value: str, ttl: Optional[float] = None) -> None:
         with self._lock:
+            self.mutations += 1
             self._strings[key] = value
             self._set_expiry(key, ttl)
 

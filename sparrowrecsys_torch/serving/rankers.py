@@ -8,7 +8,8 @@
 - `ModelScorer`: an in-process CTR scorer over a zoo model restored from
   a versioned flax export, fed the full feature dict by the assembler
   (or, without one, the movie and user ids alone: NeuralCF), with hot
-  reload of new versions (`ModelVersionWatcher`).
+  reload of new versions (`ModelVersionWatcher`);
+- `RestScorer`: the TF-Serving REST client, against `serving/sidecar.py`.
 
 The JAX package pads candidate sets to shape buckets so that `jit`
 compiles a few shapes only; PyTorch runs eagerly, so the cosine path
@@ -21,8 +22,12 @@ a wave keeps one launch shape.
 from __future__ import annotations
 
 import copy
+import http.client
+import json
 import logging
 import threading
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -295,3 +300,43 @@ class ModelVersionWatcher:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+
+
+class RestScorer:
+    """TF-Serving-protocol REST client (`HttpClient.asyncSinglePostRequest`
+    with the `{"instances": [...]}` payload, RecForYouProcess.java:131-147):
+    scores against `serving.sidecar.ScoringSidecar` or a real TF Serving."""
+
+    def __init__(self, endpoint: str = "http://localhost:8501/v1/models/recmodel:predict"):
+        self.endpoint = endpoint
+
+    def _post(self, body: bytes, timeout: float) -> bytes:
+        req = urllib.request.Request(self.endpoint, data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.read()
+
+    def score(self, user_id: int, movie_ids: Sequence[int]) -> np.ndarray:
+        """Probabilities [n], float32 (the JSON carries each score's
+        float32 value exactly)."""
+        payload = json.dumps(
+            {"instances": [{"userId": int(user_id), "movieId": int(m)} for m in movie_ids]}
+        ).encode()
+        out = json.loads(self._post(payload, timeout=10))
+        return np.asarray([p[0] for p in out["predictions"]], np.float32)
+
+    def map_post(self, body_map: dict, timeout: float = 10.0) -> Optional[dict]:
+        """`HttpClient.asyncMapPostRequest` (HttpClient.java:65-101): POST
+        every value of `body_map` concurrently and return {key: response
+        text}; None for an empty or None map, and None, not a partial
+        dict, when any request fails (the reference catches the whole
+        batch)."""
+        if not body_map:
+            return None
+        try:
+            with ThreadPoolExecutor(max_workers=min(len(body_map), 16)) as pool:
+                futures = {k: pool.submit(self._post, v.encode(), timeout)
+                           for k, v in body_map.items()}
+                return {k: f.result().decode() for k, f in futures.items()}
+        except (OSError, ValueError, http.client.HTTPException):
+            return None

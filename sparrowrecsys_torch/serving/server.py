@@ -10,10 +10,13 @@ The port of `sparrowrecsys_tpu/serving/server.py`:
   neuralcf / nerualcf with --model-dir; with --ab-test the user's bucket
   picks the model)
 - GET /metrics
+- anything else: a file of the webroot (`serving/webroot/`, the four
+  pages, `css/` and `js/`; DefaultServlet's role), and at
+  `/posters/<movieId>.jpg` a poster drawn as SVG from the catalog where
+  no such file exists; a path outside the webroot gets 404.
 
 CORS `*`, JSON in the reference's shapes, an empty body on a miss or an
-error. The static webroot and the posters are not ported yet; other
-paths get 404.
+error.
 
 Run: python -m sparrowrecsys_torch.serving.server --rank-model din \
          --rank-model-dir data/modeldata/din \
@@ -40,6 +43,44 @@ from sparrowrecsys_torch.utils.device import resolve_device
 from sparrowrecsys_torch.utils.observability import get_registry
 
 
+def _poster_svg(movie) -> bytes:
+    """A 180x260 poster drawn from the movie: a hue from its id, its
+    initials, title, year and first genre (the reference's 971 poster
+    jpgs are not bundled)."""
+    from xml.sax.saxutils import escape
+
+    hue = (movie.movie_id * 47) % 360
+    hue2 = (hue + 40) % 360
+    # Cut the raw title before escaping: a cut after it could split an
+    # entity such as '&amp;'.
+    title = escape((movie.title or "?")[:24])
+    genre = escape(movie.genres[0] if movie.genres else "")
+    year = movie.release_year or ""
+    words = (movie.title or "?").split()
+    initials = escape("".join(w[0] for w in words[:2]).upper())
+    svg = f"""<svg xmlns="http://www.w3.org/2000/svg" width="180" height="260">
+<defs><linearGradient id="g" x1="0" y1="0" x2="1" y2="1">
+<stop offset="0" stop-color="hsl({hue},45%,35%)"/>
+<stop offset="1" stop-color="hsl({hue2},50%,22%)"/>
+</linearGradient></defs>
+<rect width="180" height="260" fill="url(#g)"/>
+<text x="90" y="118" font-family="Helvetica,Arial" font-size="64"
+ fill="rgba(255,255,255,0.85)" text-anchor="middle">{initials}</text>
+<text x="90" y="210" font-family="Helvetica,Arial" font-size="13"
+ fill="#fff" text-anchor="middle">{title}</text>
+<text x="90" y="230" font-family="Helvetica,Arial" font-size="11"
+ fill="rgba(255,255,255,0.7)" text-anchor="middle">{year} {genre}</text>
+</svg>"""
+    return svg.encode()
+
+
+_CONTENT_TYPES = {
+    ".html": "text/html", ".js": "application/javascript", ".css": "text/css",
+    ".png": "image/png", ".jpg": "image/jpeg", ".ico": "image/x-icon",
+    ".json": "application/json",
+}
+
+
 class RecSysServer:
     def __init__(
         self,
@@ -49,9 +90,12 @@ class RecSysServer:
         ab_test: bool = False,
         device=None,
         scorer=None,
+        webroot: Optional[str] = None,
     ):
         """`scorers`: named scorers for `?model=<name>`; `scorer`: the
-        NeuralCF scorer (`--model-dir`), served at `?model=neuralcf`."""
+        NeuralCF scorer (`--model-dir`), served at `?model=neuralcf`;
+        `webroot`: the static files' directory (default
+        `ServingConfig.webroot`, else the package's `serving/webroot`)."""
         scorers = dict(scorers or {})
         if scorer is not None:
             if NEURALCF_NAMES[0] in scorers:
@@ -66,6 +110,8 @@ class RecSysServer:
             scorers=scorers, model_batch=self.config.model_batch,
         )
         self.ab_test = ab_test
+        self.webroot = webroot or self.config.webroot or os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "webroot")
         self.port = int(os.environ.get("PORT", self.config.port))
         self._httpd: Optional[AsyncHTTPServer] = None
         # Hot reload of every checkpoint-backed scorer's versioned dir.
@@ -125,7 +171,31 @@ class RecSysServer:
         except Exception:
             # Servlet catch-all parity: empty body (MovieService.java:57-62).
             return 200, "text/html", b""
-        return 404, "text/html", b"Not Found"
+        return self._static(path)
+
+    def _static(self, path: str) -> tuple:
+        """A file under the webroot, or a poster; 404 for anything else,
+        a path that leaves the webroot included."""
+        from urllib.parse import unquote
+
+        path = unquote(path)
+        if path in ("", "/"):
+            path = "/index.html"
+        root = os.path.abspath(self.webroot)
+        full = os.path.normpath(os.path.join(root, path.lstrip("/")))
+        # Directory-boundary containment: a bare prefix test would let
+        # /webroot_x through for a webroot of /webroot.
+        found = os.path.commonpath([root, full]) == root and os.path.isfile(full)
+        if not found and path.startswith("/posters/"):
+            stem = path.rsplit("/", 1)[1].split(".")[0]
+            m = self.dm.get_movie_by_id(int(stem)) if stem.isdigit() else None
+            if m is not None:
+                return 200, "image/svg+xml", _poster_svg(m)
+        if not found:
+            return 404, "text/html", b"Not Found"
+        with open(full, "rb") as f:
+            return 200, _CONTENT_TYPES.get(os.path.splitext(full)[1],
+                                           "application/octet-stream"), f.read()
 
     def _metrics(self, snap: dict) -> dict:
         batchers = {"emb": self.rec_for_you._batcher.stats()}

@@ -79,6 +79,25 @@ def _default_loss(logits, labels, mask):
     return loss_sum / mask.sum().clamp_min(1.0), loss_sum
 
 
+def _as_tensor(v) -> torch.Tensor:
+    """A column as a tensor: a tensor as it is, a numpy array shared."""
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+
+
+def _nbytes(v) -> int:
+    return v.numel() * v.element_size() if isinstance(v, torch.Tensor) else v.nbytes
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: a CUDA device without an index (the
+    trainer's default `cuda`) is the current card, which a tensor's own
+    device always names (`cuda:0`)."""
+    def index(d):
+        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+
+    return a.type == b.type and index(a) == index(b)
+
+
 def _moment_dtype(name: str) -> Optional[torch.dtype]:
     """TrainConfig.big_moment_dtype -> the torch dtype grouped_adam stores
     the big leaves' moments in (None for float32)."""
@@ -309,16 +328,22 @@ class Trainer:
 
     def _columns(self, ds: EncodedDataset, zero_row: bool = False):
         """The dataset's columns and labels as tensors: on the device when
-        they fit `device_resident_bytes`, else on the host. `zero_row`
-        appends one all-zero row (row n: the block shuffle's pad row)."""
-        nbytes = sum(v.nbytes for v in ds.features.values()) + ds.labels.nbytes
-        dev = self.device if nbytes <= self.device_resident_bytes else torch.device("cpu")
+        they fit `device_resident_bytes` or already live there (the
+        columns of `data.device_pipeline.encode_samples_device`, taken as
+        they are), else on the host. `zero_row` appends one all-zero row
+        (row n: the block shuffle's pad row), on the columns' device."""
+        arrays = [*ds.features.values(), ds.labels]
+        nbytes = sum(_nbytes(v) for v in arrays)
+        resident = all(isinstance(v, torch.Tensor) and _same_device(v.device, self.device)
+                       for v in arrays)
+        dev = (self.device if resident or nbytes <= self.device_resident_bytes
+               else torch.device("cpu"))
 
         def tensor(v):
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = _as_tensor(v).to(dev)
             if zero_row:
                 t = torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
-            return t.to(dev)
+            return t
 
         return {k: tensor(v) for k, v in ds.features.items()}, tensor(ds.labels)
 
@@ -445,8 +470,7 @@ class Trainer:
         out = []
         with torch.no_grad():
             for feats, _, mask in ds.batches(batch_size, shuffle=False, pad_final=True):
-                f = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                     for k, v in feats.items()}
+                f = {k: _as_tensor(v).to(self.device) for k, v in feats.items()}
                 y = self._forward(params, f)
                 p = torch.sigmoid(y[0] if isinstance(y, tuple) else y).cpu().numpy()
                 if mask is not None:
@@ -458,7 +482,7 @@ class Trainer:
                  batch_size: Optional[int] = None) -> Dict[str, float]:
         """Exact (sort-based) eval metrics + mean BCE, like Keras `evaluate`."""
         probs = self.predict(params, ds, batch_size)
-        labels = ds.labels[: len(probs)]
+        labels = _as_tensor(ds.labels[: len(probs)]).cpu().numpy()
         eps = 1e-7
         p = np.clip(probs, eps, 1 - eps)
         bce = -(labels * np.log(p) + (1 - labels) * np.log(1 - p)).mean()

@@ -19,7 +19,7 @@ def test_import_every_submodule_pulls_in_no_jax():
         "sparrowrecsys_torch.__path__, 'sparrowrecsys_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(len(names), bad)\n"
+        "print(len(names), ','.join(names), bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -27,8 +27,11 @@ def test_import_every_submodule_pulls_in_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20, out.stdout
+    for module in ("nearline.stream", "utils.profiling", "data.device_pipeline",
+                   "serving.sidecar"):
+        assert f"sparrowrecsys_torch.{module}" in names.split(","), module
     assert bad == "[]", out.stdout
 
 

@@ -221,8 +221,12 @@ def test_http_round_trip_and_metrics(servers):
         with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
             snap = json.loads(r.read())
         assert snap["batchers"]["din"]["waves"] >= 1
+        # The webroot serves its pages; a path it does not hold is a 404.
+        with urllib.request.urlopen(f"{base}/index.html", timeout=30) as r:
+            with open(os.path.join(tserver.webroot, "index.html"), "rb") as f:
+                assert r.status == 200 and r.read() == f.read()
         with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"{base}/index.html", timeout=30)
+            urllib.request.urlopen(f"{base}/nope.html", timeout=30)
         assert e.value.code == 404
     finally:
         tserver.stop()
