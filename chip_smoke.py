@@ -91,7 +91,19 @@ Phases, each fatal on failure:
    in s); the webroot's pages, a poster and two refused paths; and
    `utils.trace` around five waves (a Chrome trace with the card's
    kernels).
-9. summary: one {"kernels": [...]} line, then the last line,
+9. the multi-device plane (`[mesh]` lines): (a) DeepFMv2 (sparse user
+   table) and DIN with a 1x1 mesh plan, in this process and under a NCCL
+   process group of world size 1, each bit-equal to two fits without a
+   plan (batch 65536, 2 epochs of 4 steps, deterministic algorithms),
+   with examples/s with and without the plan and `measure_scaling([1])`;
+   (b) four ranks on this one card (a 2x2 mesh over gloo, every table
+   of at least 16 rows row-sharded) fitting DeepFMv2, DIN and DIEN, each
+   within `tests/test_sharded_training.py`'s bounds of the single-card
+   fit (a correctness run, no speed); (c) `sharded_cosine_topk` over the
+   two model ranks at Q=256, D=64, k=10 over 1,000,000 items, raw and
+   prepared, with the single card's indices. Every kernel must launch.
+10. summary: one {"kernels": [...]} line (each kernel's launches, phase
+   9's among them under `launches_mesh`), then the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -107,6 +119,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -2601,6 +2614,256 @@ def rest_phase(device: str = "cuda", synthetic=None):
     return counts
 
 
+# ---- phase 9 -----------------------------------------------------------------
+
+#: Phase 9's fits: the shipped widths at buckets 30,002 / 1,002 (even, so
+#: the 2x2 mesh can split them), batch 65536, 2 epochs of 4 steps, every
+#: table of at least 16 rows row-sharded (the JAX dry run's `min_rows`),
+#: the default learning rate. DeepFMv2's user table on the row-Adam.
+MESH_MODELS = {"deepfm_v2": {"emb_userId": ("userId",)}, "din": None, "dien": None}
+MESH_STEPS = 4
+MESH_BUCKETS = (30002, 1002)
+#: `tests/test_sharded_training.py`'s bounds against one device.
+MESH_LOSS_TOL = {"deepfm_v2": 1e-3, "din": 2e-3, "dien": 2e-3}
+MESH_AUC_TOL, MESH_PARAM_TOL = 5e-3, 1e-3
+#: The sharded top-k: Q queries of D over M items, top k, on 2 model ranks.
+MESH_TOPK = {"m": 1_000_000, "q": 256, "d": 64, "k": 10, "seed": 9, "time_iters": 20}
+MESH_TOPK_TOL = 1e-5
+
+
+def mesh(msg: str) -> None:
+    log(f"[mesh] {msg}")
+
+
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def mesh_case(name, device="cuda"):
+    """A phase-9 fit case (`tools.dryrun_multichip`'s form) with its
+    initial params, drawn once on the card and shared by every fit."""
+    import torch
+
+    from sparrowrecsys_torch.tools import dryrun_multichip as dm
+
+    case = {"model": name, "buckets": MESH_BUCKETS, "rows": TRAIN_BATCH * MESH_STEPS,
+            "seed": 20, "generator": TRAIN_MODELS[name][0], "min_rows": 16,
+            "sparse_tables": MESH_MODELS[name],
+            "config": {"batch_size": TRAIN_BATCH, "epochs": 2}}
+    with torch.no_grad():
+        init = dm.make_trainer(case, None, device).init_params()
+    case["init"] = {k: v.cpu().numpy() for k, v in init.items()}
+    return case
+
+
+def fits_equal(a, b) -> float:
+    """The largest parameter gap of two fit_case results (0.0: bit-equal
+    params), and AssertionError if their histories differ."""
+    from sparrowrecsys_torch.tools.dryrun_multichip import max_gap
+
+    if a["history"] != b["history"]:
+        raise AssertionError(f"histories differ: {a['history']} != {b['history']}")
+    return max_gap(a["params"], b["params"])
+
+
+def plan_step_ms(case, plans, device="cuda", steps: int = 10, rounds: int = 4):
+    """ms per train step (batch TRAIN_BATCH, the case's first rows) of the
+    case's model under each of `plans` ({label: plan or None}), the plans
+    timed in turns: {label: (median, least, most)} over `rounds` runs of
+    `steps` steps."""
+    import numpy as np
+    import torch
+
+    from sparrowrecsys_torch.ops import metrics as M
+    from sparrowrecsys_torch.tools import dryrun_multichip as dm
+
+    ds = dm.case_data(case)
+    fns = {}
+    for label, plan in plans.items():
+        trainer = dm.make_trainer(case, plan, device)
+        state = list(trainer.prepare({k: torch.from_numpy(v) for k, v in case["init"].items()}))
+        feats = {k: torch.from_numpy(np.ascontiguousarray(v[:TRAIN_BATCH])).to(trainer.device)
+                 for k, v in ds.features.items()}
+        labels = torch.from_numpy(ds.labels[:TRAIN_BATCH]).to(trainer.device)
+
+        def run(trainer=trainer, state=state, feats=feats, labels=labels):
+            mstate = M.init_metrics(trainer.device)
+            for _ in range(steps):
+                state[0], state[1], mstate = trainer._train_step(
+                    state[0], state[1], mstate, feats, labels, torch.ones_like(labels))
+
+        fns[label] = run
+    return in_turns(fns, lambda fn: event_ms(fn, device)[1] / steps, rounds)
+
+
+def one_rank_plans(cases, device="cuda"):
+    """Phase 9 (a): DeepFMv2 and DIN with a 1x1 plan, in this process (no
+    process group) and under a NCCL group of world size 1, each against
+    two fits without a plan, under PyTorch's deterministic algorithms;
+    then a train step's ms without a plan and with each 1x1 plan, in
+    turns, and `measure_scaling([1])`. Returns the plan fits' launch
+    counts and the single-card fits."""
+    import torch
+    import torch.distributed as dist
+
+    from sparrowrecsys_torch.config import MeshConfig
+    from sparrowrecsys_torch.parallel import build_mesh, init_distributed, measure_scaling
+    from sparrowrecsys_torch.tools.dryrun_multichip import fit_case
+
+    card = card_label()
+    names = ("deepfm_v2", "din")
+    fits = {name: {} for name in names}
+    counts = {k: 0 for k in counters()}
+
+    def planned(name, key, plan):
+        nonlocal counts
+        reset_counts()
+        fits[name][key] = fit_case(cases[name], plan, device)
+        counts = {k: v + read_counts()[k] for k, v in counts.items()}
+
+    local_plan = build_mesh()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in names:
+            fits[name]["runs"] = [fit_case(cases[name], None, device) for _ in range(2)]
+            planned(name, "local", local_plan)
+        with tempfile.TemporaryDirectory() as tmp:
+            init_distributed("file://" + os.path.join(tmp, "rendezvous"), 1, 0,
+                             backend="nccl" if device == "cuda" else "gloo")
+            try:
+                nccl_plan = build_mesh(MeshConfig(data_parallel=1, model_parallel=1))
+                # A communicator starts at its group's first collective
+                # (some 100 ms): start both before the timed fits.
+                for axis in (nccl_plan.data_axis, nccl_plan.model_axis):
+                    nccl_plan.all_gather(torch.zeros(1, device=device), axis)
+                for name in names:
+                    planned(name, "nccl", nccl_plan)
+                torch.use_deterministic_algorithms(False)
+                plans = {"no plan": None, "1x1 in process": local_plan,
+                         "1x1 under NCCL": nccl_plan}
+                step_ms = {name: plan_step_ms(cases[name], plans, device) for name in names}
+                scaling = measure_scaling([1], per_device_batch=TRAIN_BATCH, steps=10,
+                                          device=device)
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in names:
+        runs, local, nccl = fits[name]["runs"], fits[name]["local"], fits[name]["nccl"]
+        pair = fits_equal(runs[0], runs[1])
+        gaps = {"in_process": fits_equal(local, runs[0]), "nccl_world_1": fits_equal(nccl, runs[0])}
+        mesh(f"(a) {name} 1x1 plan against no plan: max param gap {json.dumps(gaps)} "
+             f"(two fits without a plan: {pair}); collective bytes under NCCL "
+             f"{json.dumps(nccl['collective_bytes'])}; examples/s over the steady epoch: "
+             f"no plan {runs[0]['examples_per_sec']:.1f}, {runs[1]['examples_per_sec']:.1f}; "
+             f"1x1 plan in process {local['examples_per_sec']:.1f}, under NCCL "
+             f"{nccl['examples_per_sec']:.1f} ({card})")
+        mesh(f"(a) {name} ms per train step at batch {TRAIN_BATCH}, median (least, most) of 4 "
+             f"runs of 10 steps in turns: {json.dumps(step_ms[name])} ({card})")
+        if any(g != 0 for g in gaps.values()) and not all(g <= 2 * pair for g in gaps.values()):
+            raise AssertionError(f"{name}: a 1x1 plan departs from no plan by {gaps} "
+                                 f"(two fits without one: {pair})")
+    mesh(f"(a) measure_scaling([1]) under NCCL, DeepFM, batch {TRAIN_BATCH}: "
+         f"{json.dumps([dataclass_dict(p) for p in scaling])} ({card})")
+    return counts, {name: fits[name]["runs"][0] for name in names}
+
+
+def dataclass_dict(obj) -> dict:
+    import dataclasses
+
+    return dataclasses.asdict(obj)
+
+
+def deterministic_mesh_worker(plan, job, device):
+    """`mesh_worker` under PyTorch's deterministic algorithms, as the
+    single-card fits it is held to ran."""
+    import torch
+
+    from sparrowrecsys_torch.tools.dryrun_multichip import mesh_worker
+
+    torch.use_deterministic_algorithms(True)
+    return mesh_worker(plan, job, device)
+
+
+def mesh_ranks(cases, singles, device="cuda"):
+    """Phase 9 (b) and (c): four ranks on this one card over gloo (a 2x2
+    mesh), DeepFMv2 (sparse user table), DIN and DIEN each held to the
+    single-card fit within `tests/test_sharded_training.py`'s bounds; then
+    `sharded_cosine_topk` over each data row's two model ranks against
+    `cosine_topk` on the card. Both sides run under PyTorch's
+    deterministic algorithms: with the default kernels a near-zero
+    gradient's rounding can flip the sign of an Adam step (a DIN parameter
+    1.8e-4 from the single card's in one run, 2.0e-7 in another, NVIDIA
+    H100 80GB HBM3, 700.00 W), which would hide a fault of the sharding
+    at the 1e-3 bound. A correctness run: four ranks share one card, so
+    no speed is claimed. Returns the ranks' summed launches."""
+    import numpy as np
+    import torch
+
+    from sparrowrecsys_torch.parallel import spawn_ranks
+    from sparrowrecsys_torch.tools.dryrun_multichip import fit_case, max_gap
+
+    singles = dict(singles)
+    torch.use_deterministic_algorithms(True)
+    try:
+        singles["dien"] = fit_case(cases["dien"], None, device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    job = [(name, "fit", cases[name]) for name in MESH_MODELS]
+    job += [("topk_raw", "topk", MESH_TOPK), ("topk_prepared", "topk", {**MESH_TOPK, "prepared": True})]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(deterministic_mesh_worker, (2, 2), (job, device), backend="gloo",
+                        timeout=600)
+    mesh(f"(b) 4 ranks (2x2) over gloo, their tensors on {device} as they are: "
+         f"{time.perf_counter() - t0:.1f} s with start-up")
+    for name in MESH_MODELS:
+        got, ref = ranks[0][name], singles[name]
+        if any(r[name]["history"] != got["history"] for r in ranks[1:]):
+            raise AssertionError(f"{name}: the ranks' histories differ")
+        loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(ref["history"], got["history"]))
+        auc = max(abs(a["roc_auc"] - b["roc_auc"]) for a, b in zip(ref["history"], got["history"]))
+        param = max_gap(ref["params"], got["params"])
+        sharded = sorted(k for k, v in got["shardings"].items() if v)
+        mesh(f"(b) {name} 2x2 against one card: max gaps loss {loss}, roc_auc {auc}, "
+             f"param {param}; row-sharded {sharded}; collective bytes on rank 0 "
+             f"{json.dumps(got['collective_bytes'])}")
+        if not (loss < MESH_LOSS_TOL[name] and auc < MESH_AUC_TOL and param < MESH_PARAM_TOL):
+            raise AssertionError(f"{name}: the 2x2 fit departs from one card "
+                                 f"(loss {loss}, auc {auc}, param {param})")
+    card = card_label()
+    for kind in ("topk_raw", "topk_prepared"):
+        for r in ranks:
+            t = r[kind]
+            np.testing.assert_array_equal(t["indices"], t["single_indices"])
+            np.testing.assert_allclose(t["scores"], t["single_scores"], rtol=0, atol=MESH_TOPK_TOL)
+        t = ranks[0][kind]
+        mesh(f"(c) sharded_cosine_topk {kind}, Q={MESH_TOPK['q']} D={MESH_TOPK['d']} "
+             f"k={MESH_TOPK['k']} over {MESH_TOPK['m']} items on 2 model ranks: indices equal "
+             f"to one card's, max score gap {float(np.abs(t['scores'] - t['single_scores']).max())}"
+             f"; {t['ms']:.3f} ms per call on rank 0 ({t['single_ms']:.3f} ms for the whole "
+             f"catalog on one rank; four ranks share the card: not a speed) ({card})")
+    return {k: sum(r["launches"][k] for r in ranks) for k in counters()}
+
+
+def mesh_phase(device: str = "cuda"):
+    """Phase 9: the multi-device plane on the one card. Returns the six
+    kernels' launches under it; each must be at least 1."""
+    cases = {name: mesh_case(name, device) for name in MESH_MODELS}
+    local_counts, singles = one_rank_plans(cases, device)
+    rank_counts = mesh_ranks(cases, singles, device)
+    counts = {k: local_counts[k] + rank_counts[k] for k in counters()}
+    mesh(f"launches: 1x1 plans {json.dumps(local_counts)}; 2x2 ranks "
+         f"{json.dumps(rank_counts)}")
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"phase 9 did not launch {k}")
+    return counts
+
+
 def main() -> int:
     # The cuBLAS workspace that phase 6's deterministic fits ask for, set
     # before any CUDA work: on sm_90 it is PyTorch's default size (8
@@ -2624,10 +2887,7 @@ def main() -> int:
     t_start = time.perf_counter()
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_label()
     log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2698,20 +2958,28 @@ def main() -> int:
     t0 = time.perf_counter()
     rest_counts = rest_phase(synthetic=synthetic)
     phase_s["rest"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # 9. the multi-device plane on the one card
+    t0 = time.perf_counter()
+    mesh_counts = mesh_phase()
+    phase_s["mesh"] = time.perf_counter() - t0
     log(f"[time] phases in s: {json.dumps(phase_s)}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
     counts = dict(trained, fm_cross=serving_counts["fm_cross"],
                   din_attention=serving_counts["din_attention"])
-    counts = {k: v + offline_counts[k] + rest_counts[k] for k, v in counts.items()}
+    counts = {k: v + offline_counts[k] + rest_counts[k] + mesh_counts[k]
+              for k, v in counts.items()}
 
-    # 9. summary
+    # 10. summary
     def entry(name, route, source, replaces, rows):
         main_row = rows[0]
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "launches_training": trained[name],
             "launches_offline": offline_counts[name], "launches_rest": rest_counts[name],
+            "launches_mesh": mesh_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

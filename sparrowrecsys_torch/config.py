@@ -87,8 +87,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh (`data` x `model` axes). Data only in
-    the port: a `Trainer(plan=)` raises NotImplementedError (ROADMAP.md)."""
+    """The device mesh (`data` x `model` axes): one process per rank in the
+    port, rank = d * model_parallel + m (`parallel/mesh.py::build_mesh`);
+    `Trainer(plan=)` trains over it."""
 
     data_axis: str = "data"
     model_axis: str = "model"

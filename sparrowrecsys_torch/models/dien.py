@@ -229,14 +229,19 @@ def dien_loss_fn(
 
     `in_graph_negatives=True` draws the negative columns in the step from
     the generator the Trainer passes (`wants_rng`), so the training data
-    needs none; evaluation still reads them from the data.
+    needs none; evaluation still reads them from the data. `fn.draw(
+    generator, feats)` draws them alone: a mesh's trainer draws them for
+    the global batch and hands each rank its rows with no generator.
     `prepare_init_features` adds them to sample features for a caller that
     traces the model on training data without them."""
     sign = 1.0 if aux_mode == "paper" else -1.0
 
+    def draw(generator, feats):
+        return sample_negatives_in_graph(generator, feats, recent_movies, movie_vocab)
+
     def fn(forward, params, feats, labels, mask, generator=None):
-        if in_graph_negatives and aux_mode != "none":
-            feats = sample_negatives_in_graph(generator, feats, recent_movies, movie_vocab)
+        if in_graph_negatives and aux_mode != "none" and generator is not None:
+            feats = draw(generator, feats)
         logits, aux = forward(params, feats)
         per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
         if aux_mode != "none":
@@ -245,6 +250,8 @@ def dien_loss_fn(
         return loss_sum / mask.sum().clamp_min(1.0), (logits, loss_sum)
 
     fn.wants_rng = bool(in_graph_negatives)
+    if in_graph_negatives and aux_mode != "none":
+        fn.draw = draw
     if in_graph_negatives:
         def prepare(feats):
             dev = next(iter(feats.values())).device

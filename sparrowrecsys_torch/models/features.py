@@ -23,8 +23,10 @@ from torch import nn
 
 from sparrowrecsys_torch.config import EMBEDDING_DIM, GENRE_VOCAB
 from sparrowrecsys_torch.ops.embedding import (
+    cast_rows,
     embed_lookup,
     packed_multi_lookup,
+    row_shard_of,
     uniform_embed_init,
 )
 
@@ -82,7 +84,7 @@ class IdEmbed(nn.Module):
     def forward(self, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         table = self.table
         if self.lookup_dtype is not None:
-            table = table.to(compute_dtype(self.lookup_dtype))
+            table = cast_rows(table, compute_dtype(self.lookup_dtype))
         if idx is None:
             return table
         return embed_lookup(table, idx, mask_zero=self.mask_zero)
@@ -106,7 +108,12 @@ class IdBias(nn.Module):
 def merged_embed_bias(
     emb_table: torch.Tensor, bias_col: torch.Tensor, idx: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One gather for an id column's embedding [B, D] and its bias [B]."""
+    """One gather for an id column's embedding [B, D] and its bias [B]; a
+    gather each when either is a row block of a sharded table
+    (`ops/embedding.py::row_sharded`), with the same values."""
+    if row_shard_of(emb_table) is not None or row_shard_of(bias_col) is not None:
+        bias = cast_rows(bias_col, emb_table.dtype)
+        return embed_lookup(emb_table, idx), embed_lookup(bias, idx)[..., 0]
     merged = torch.cat([emb_table, bias_col.to(emb_table.dtype)], dim=1)
     out = embed_lookup(merged, idx)
     return out[..., :-1], out[..., -1]
@@ -119,7 +126,10 @@ def packed_embed_bias(columns):
     columns: (emb_table [V, D], bias_col [V, 1], idx [B]) each. Each
     table is merged with its bias column into [V, D+1], and all of them
     go through one `packed_multi_lookup`. Returns a list of
-    (embedding [B, D], bias [B]) pairs, equal to `merged_embed_bias`'s."""
+    (embedding [B, D], bias [B]) pairs, equal to `merged_embed_bias`'s
+    (and made by it when a table is a row block of a sharded one)."""
+    if any(row_shard_of(t) is not None for col in columns for t in col[:2]):
+        return [merged_embed_bias(emb, bias, idx) for emb, bias, idx in columns]
     merged = [torch.cat([emb, bias.to(emb.dtype)], dim=1) for emb, bias, _ in columns]
     outs = packed_multi_lookup(merged, [idx for _, _, idx in columns])
     return [(o[..., :-1], o[..., -1]) for o in outs]

@@ -10,7 +10,8 @@ of this to XLA, so there is no kernel here.
 
 Off the TPU the JAX package's measured policies answer "exact" and
 "keep the dtype" (`topk_dispatch`, `prepare_catalog`); so do the port's.
-`sharded_cosine_topk` is not ported yet (ROADMAP.md).
+`sharded_cosine_topk` runs the top-k over a catalog row-sharded across a
+mesh's model ranks.
 """
 
 from __future__ import annotations
@@ -144,3 +145,51 @@ def cosine_topk_prepared(
         )
     qn = _normalize(queries).to(prepared.dtype)
     return top_k(_scores_f32(qn, prepared.rows), k)
+
+
+def sharded_cosine_topk(
+    queries: torch.Tensor,
+    items,
+    k: int,
+    plan,
+    *,
+    approx: "bool | None" = None,
+    prepared: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a catalog row-sharded across `plan`'s model ranks: the
+    port of `ops/topk.py::sharded_cosine_topk` (:182-248).
+
+    `items` is the whole catalog [M, D] (or its `prepare_catalog`
+    output), padded with zero rows to whole blocks of ceil(M / n_model);
+    this rank scores its block, takes its top-k, and the [Q, k] partials
+    are all-gathered over `model` in shard order and merged by `top_k`.
+    Equal scores come out by ascending global index, as from `lax.top_k`
+    over the whole catalog: each shard's partial lists its ties that way,
+    and the shards' partials sit in row order. Queries are the same on
+    every rank; so is the result.
+
+    A `PreparedCatalog` implies prepared=True; prepared=True with a raw
+    tensor is a TypeError. `approx` is accepted for the JAX signature:
+    off the TPU the per-shard stage is exact either way."""
+    if isinstance(items, PreparedCatalog):
+        items, prepared = items.rows, True
+    elif prepared:
+        raise TypeError(
+            "sharded_cosine_topk(prepared=True) needs a prepare_catalog() "
+            "output (PreparedCatalog), not a raw tensor.")
+    m = items.shape[0]
+    block = -(-m // plan.n_model)
+    if block * plan.n_model != m:
+        items = torch.cat([items, items.new_zeros(block * plan.n_model - m, items.shape[1])])
+    lo = plan.model_index * block
+    rows = items[lo:lo + block]
+    if prepared:
+        s, i = cosine_topk_prepared(queries, PreparedCatalog(rows), k)
+    else:
+        s, i = cosine_topk(queries, rows, k)
+    i = i + lo
+    # [Q, P*k]: the partials side by side in shard order.
+    s_all = plan.all_gather(s.T.contiguous(), plan.model_axis).T
+    i_all = plan.all_gather(i.T.contiguous(), plan.model_axis).T
+    s_top, pos = top_k(s_all.contiguous(), k)
+    return s_top, i_all.gather(1, pos)

@@ -9,7 +9,9 @@ The port of `sparrowrecsys_tpu/serving/server.py`:
 - GET /getrecforyou?id=&size=&model=   (model = emb, a --rank-model, or
   neuralcf / nerualcf with --model-dir; with --ab-test the user's bucket
   picks the model)
-- GET /metrics
+- GET /metrics: the registry's counters and gauges (every path that is
+  not `/get*` counts as `http.static`, as the JAX server counts it), the
+  batchers' stats, served model versions and latency quantiles
 - anything else: a file of the webroot (`serving/webroot/`, the four
   pages, `css/` and `js/`; DefaultServlet's role), and at
   `/posters/<movieId>.jpg` a poster drawn as SVG from the catalog where
@@ -146,7 +148,7 @@ class RecSysServer:
     def handle(self, path: str, q) -> tuple:
         """Returns (status, content_type, body_bytes)."""
         reg = get_registry()
-        reg.incr(f"http.requests{path}" if path.startswith("/get") else "http.other")
+        reg.incr(f"http.requests{path}" if path.startswith("/get") else "http.static")
         if path == "/metrics":
             return self._json(self._metrics(reg.snapshot()))
         try:

@@ -30,9 +30,30 @@ the JAX package's tree. A `loss_fn` (DIEN's `dien_loss_fn`) takes the
 JAX protocol (`loop.py:76-82`, `:350-363`):
 `loss_fn(forward, params, feats, labels, mask[, generator])` ->
 (loss, (logits, summed masked objective)), with a per-step
-`torch.Generator` when `loss_fn.wants_rng`. Mesh plans
-(`Trainer(plan=)`) raise NotImplementedError; they are queued in
-ROADMAP.md.
+`torch.Generator` when `loss_fn.wants_rng`.
+
+`Trainer(plan=)` trains over a (data, model) mesh (`parallel/mesh.py`),
+one process per rank, equal to single-device training up to the order
+of float additions:
+- every rank holds the whole dataset and takes its data coordinate's
+  slice of each global batch, in the single-device order (`orders=`
+  too); a `wants_rng` loss's draws are made for the global batch
+  (`loss_fn.draw`) and sliced;
+- the loss is normalised globally: the gradient of loss_sum / (the mask
+  count summed over `data`), then the gradients summed over `data`, so a
+  padded last batch whose shards hold different counts weighs as it does
+  on one device; the metric state is summed over `data` before the AUC;
+- tables row-sharded by the name rule (by their whole shapes,
+  `min_rows_to_shard`) are looked up through `ops.embedding.
+  sharded_lookup`; the optimizer's small-leaf split, the bfloat16
+  moments and the narrowed tables follow the whole sizes; a sparse
+  table's lazy row-Adam takes the global batch's ids (gathered over
+  `data`) and updates only the rows this shard owns, in its local fused
+  buffer, through the same row kernels;
+- train states are gathered to rank 0 and written in the single-device
+  layout; a resume shards them again. `fit` returns the whole params on
+  every rank (and this rank's optimizer state).
+A 1x1 plan runs the same arithmetic as no plan, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,9 +71,24 @@ from sparrowrecsys_torch.config import TrainConfig
 from sparrowrecsys_torch.data.dataset import EncodedDataset
 from sparrowrecsys_torch.models.features import flax_init
 from sparrowrecsys_torch.ops import metrics as M
+from sparrowrecsys_torch.ops.embedding import RowShard, row_sharded
+from sparrowrecsys_torch.parallel.collectives import WORLD
+from sparrowrecsys_torch.parallel.mesh import (
+    MIN_ROWS_TO_SHARD,
+    gather_params,
+    param_shardings,
+    row_block,
+    shard_params,
+)
 from sparrowrecsys_torch.training import checkpoint as ckpt
-from sparrowrecsys_torch.training.optim import SMALL_LEAF_MAX_ELEMS, grouped_adam
+from sparrowrecsys_torch.training.optim import (
+    SMALL_LEAF_MAX_ELEMS,
+    GroupedAdamState,
+    grouped_adam,
+    split_leaves,
+)
 from sparrowrecsys_torch.training.row_optim import (
+    FusedRowAdamState,
     fused_row_adam_update,
     fused_table,
     init_fused_row_adam,
@@ -125,10 +161,11 @@ class Trainer:
         sparse_tables: Optional[Dict[str, tuple]] = None,
         device=None,
     ):
-        if plan is not None:
-            raise NotImplementedError(
-                "training over a device mesh (MeshPlan) is not ported yet; "
-                "it is queued in ROADMAP.md")
+        self.plan = plan
+        #: Under a plan: tables of at least this many rows are row-sharded.
+        self.min_rows_to_shard = MIN_ROWS_TO_SHARD
+        self._shardings: Dict[str, tuple] = {}
+        self._whole_shapes: Dict[str, tuple] = {}
         self.loss_fn = loss_fn
         self.config = config or TrainConfig()
         self.device = resolve_device(device)
@@ -191,7 +228,8 @@ class Trainer:
         `seed` (default `TrainConfig.seed`). `sample_feats` is accepted
         for the JAX signature; the shapes come from the model. Under
         `bf16_table_params` the float32 leaves of at least
-        SMALL_LEAF_MAX_ELEMS elements are stored in bfloat16."""
+        SMALL_LEAF_MAX_ELEMS elements are stored in bfloat16. The params
+        are whole under a plan too; `fit` and `prepare` shard them."""
         seed = self.config.seed if seed is None else seed
         params = flax_init(self.model, torch.Generator().manual_seed(seed), self.device)
         if self.config.bf16_table_params:
@@ -199,6 +237,115 @@ class Trainer:
                       and v.numel() >= SMALL_LEAF_MAX_ELEMS else v
                       for k, v in params.items()}
         return params
+
+    def prepare(self, params: Dict[str, torch.Tensor]):
+        """(params in the fit form, a fresh optimizer state) from whole
+        params, copied onto the device. Under a plan the params are this
+        rank's shards (`parallel/mesh.py`'s rule on the whole shapes) and
+        the optimizer splits its leaves by their whole sizes. With sparse
+        tables the params hold placeholders (`_dense_view`)."""
+        params = {k: v.to(self.device).clone() for k, v in params.items()}
+        if self.plan is not None:
+            self._shardings = param_shardings(params, self.plan, self.min_rows_to_shard)
+            self._whole_shapes = {k: tuple(v.shape) for k, v in params.items()}
+            self.tx.leaf_sizes = {k: v.numel() for k, v in self._dense_view(params).items()}
+            params = {k: v.clone() for k, v in
+                      shard_params(params, self.plan, shardings=self._shardings).items()}
+        opt_state = self.init_opt_state(params)
+        if self.sparse_tables:
+            params = self._dense_view(params)
+        return params, opt_state
+
+    def _sharded(self, name: str) -> bool:
+        return bool(self._shardings.get(name))
+
+    def _map_state(self, params, opt_state, fn):
+        """(params, opt_state) with `fn(name, leaf)` applied to each
+        row-sharded leaf: the params (fit form), the dense optimizer's
+        moments (the pieces of its fused small-leaf vector, the big-leaf
+        lists) and masters, and the sparse tables' row buffers."""
+        out = {k: fn(k, v) if self._sharded(k) and k not in self._table_keys else v
+               for k, v in params.items()}
+        dense = opt_state["dense"] if self.sparse_tables else opt_state
+        small, big = split_leaves(params, self.tx.small_max_elems, self.tx.leaf_sizes)
+
+        def vec(v):
+            if not small:
+                return v
+            pieces = v.split([params[k].numel() for k in small])
+            return torch.cat([fn(k, p.view(params[k].shape)).reshape(-1)
+                              if self._sharded(k) and k not in self._table_keys else p
+                              for k, p in zip(small, pieces)])
+
+        def per_leaf(values):
+            return [fn(k, x) if x is not None and self._sharded(k) else x
+                    for k, x in zip(big, values)]
+
+        dense = GroupedAdamState(
+            dense.count, vec(dense.mu_vec), vec(dense.nu_vec), per_leaf(dense.mu_big),
+            per_leaf(dense.nu_big),
+            per_leaf(dense.master_big) if isinstance(dense.master_big, list) else dense.master_big)
+        if not self.sparse_tables:
+            return out, dense
+        rows = {mod: FusedRowAdamState(st.count, fn(f"{mod}.table", st.buf)
+                                       if self._sharded(f"{mod}.table") else st.buf)
+                for mod, st in opt_state["rows"].items()}
+        return out, {"dense": dense, "rows": rows}
+
+    def gather_state(self, params, opt_state):
+        """This rank's (params, opt_state) -> the whole ones, on every rank."""
+        return self._map_state(params, opt_state,
+                               lambda k, t: self.plan.all_gather(t, self.plan.model_axis))
+
+    def shard_state(self, params, opt_state):
+        """Whole (params, opt_state) -> this rank's shards (copies)."""
+        def take(k, t):
+            block = row_block(t.shape[0], self.plan)
+            lo = self.plan.model_index * block
+            return t[lo:lo + block].clone()
+
+        return self._map_state(params, opt_state, take)
+
+    def whole_params(self, params, opt_state) -> Dict[str, torch.Tensor]:
+        """The trained params, whole on every rank: the sparse tables out of
+        their buffers and, under a plan, the row-sharded leaves gathered."""
+        if self.sparse_tables:
+            params = self._materialize_tables(params, opt_state)
+        if self.plan is not None:
+            params = gather_params(params, self.plan, self._shardings)
+        return params
+
+    def _row_blocks(self, leaves) -> Dict[torch.Tensor, RowShard]:
+        """The leaves whose lookups go through `sharded_lookup`: the
+        row-sharded ones, when the model axis splits them."""
+        if self.plan is None or self.plan.n_model == 1:
+            return {}
+        return {leaves[k]: RowShard(self.plan, self._whole_shapes[k][0])
+                for k in leaves if self._sharded(k)}
+
+    def _sum_over_data(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each tensor summed over the data axis, in one collective per dtype
+        and kind. A replicated one (every name but a row-sharded leaf's)
+        under a model axis is the sum of model rank 0's, taken over every
+        rank, so that it is the same on each rank bit for bit whatever
+        order the card's kernels add in: its replicas stay one value, as
+        in the JAX package."""
+        plan = self.plan
+        if plan.comm is None:
+            return tensors
+        out = {}
+        groups: Dict[tuple, list] = {}
+        for k, v in tensors.items():
+            replicated = plan.n_model > 1 and not self._sharded(k)
+            groups.setdefault((v.dtype, replicated), []).append(k)
+        for (_, replicated), names in groups.items():
+            flat = torch.cat([tensors[k].reshape(-1) for k in names])
+            if replicated and plan.model_index != 0:
+                flat.zero_()
+            plan.all_reduce(flat, WORLD if replicated else plan.data_axis)
+            for k, piece in zip(names, flat.split([tensors[k].numel() for k in names])):
+                out[k] = piece.view(tensors[k].shape)
+        return {k: out[k] for k in tensors}
 
     # ------------------------------------------------------------------
     def _forward(self, params, feats):
@@ -234,10 +381,18 @@ class Trainer:
     def loss_and_grads(self, params, opt_state, feats, labels, mask, generator=None):
         """Forward and backward of one batch: (logits, loss, summed masked
         objective, gradients keyed by state_dict name; a sparse table's is
-        its dense [V, D] gradient)."""
+        its dense [V, D] gradient). Under a plan the batch is this rank's
+        shard, the loss is normalised by the mask count over `data`, and
+        the gradients come out summed over `data`."""
         leaves = self._diff_leaves(params, opt_state)
-        loss, logits, loss_sum = self._loss(leaves, feats, labels, mask, generator)
+        with row_sharded(self._row_blocks(leaves)):
+            loss, logits, loss_sum = self._loss(leaves, feats, labels, mask, generator)
+        if self.plan is not None:
+            count = self.plan.all_reduce(mask.sum(), self.plan.data_axis)
+            loss = loss_sum / count.clamp_min(1.0)
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        if self.plan is not None:
+            grads = self._sum_over_data(grads)
         return logits.detach(), loss.detach(), loss_sum.detach(), grads
 
     @torch.no_grad()
@@ -254,6 +409,11 @@ class Trainer:
             rows = {}
             for mod, cols in self.sparse_tables.items():
                 ids = torch.cat([feats[c].reshape(-1).to(torch.int32) for c in cols])
+                if self.plan is not None:
+                    # The global batch's ids; a shard's own rows by local id.
+                    ids = self.plan.all_gather(ids, self.plan.data_axis)
+                    if self._sharded(f"{mod}.table"):
+                        ids = ids - self.plan.model_index * opt_state["rows"][mod].buf.shape[0]
                 rows[mod] = fused_row_adam_update(
                     opt_state["rows"][mod], grads[f"{mod}.table"], ids,
                     learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
@@ -387,21 +547,31 @@ class Trainer:
         without it the order comes from a torch.Generator seeded with
         seed + epoch. Either way epoch e's order depends on e alone, so a
         resumed run replays the uninterrupted run's batches.
-        The caller's `params` are copied, not changed; their dtypes stay."""
+        The caller's `params` (whole, under a plan too) are copied, not
+        changed; their dtypes stay."""
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         batch_size = cfg.batch_size if batch_size is None else batch_size
+        plan = self.plan
         if params is None:
             params = self.init_params(train.features)
-        params = {k: v.to(self.device).clone() for k, v in params.items()}
-        opt_state = self.init_opt_state(params)
-        if self.sparse_tables:
-            params = self._dense_view(params)
+        whole = params
+        params, opt_state = self.prepare(params)
         start_epoch = 0
         if resume and state_dir:
             try:
-                params, opt_state, start_epoch, _ = ckpt.load_latest_train_state(
-                    state_dir, self.model, params, opt_state)
+                if plan is None:
+                    params, opt_state, start_epoch, _ = ckpt.load_latest_train_state(
+                        state_dir, self.model, params, opt_state)
+                else:
+                    # Whole templates (the single-device layout), then shards.
+                    tparams = {k: v.to(self.device) for k, v in whole.items()}
+                    topt = self.init_opt_state(tparams)
+                    if self.sparse_tables:
+                        tparams = self._dense_view(tparams)
+                    wparams, wopt, start_epoch, _ = ckpt.load_latest_train_state(
+                        state_dir, self.model, tparams, topt)
+                    params, opt_state = self.shard_state(wparams, wopt)
                 if verbose:
                     print(f"resumed train state at epoch {start_epoch}")
             except FileNotFoundError:
@@ -410,6 +580,14 @@ class Trainer:
         n = len(train)
         steps = -(-n // batch_size)
         padded = steps * batch_size
+        per, lo = batch_size, 0
+        if plan is not None:
+            if batch_size % plan.n_data:
+                raise ValueError(f"batch_size {batch_size} does not split over "
+                                 f"{plan.n_data} data ranks")
+            per = batch_size // plan.n_data
+            lo = plan.data_index * per
+        draw = getattr(self.loss_fn, "draw", None)
         if cfg.shuffle_mode == "blocks" and padded % cfg.shuffle_block != 0:
             print(f"shuffle_mode='blocks' requested but padded epoch size {padded} "
                   f"is not a multiple of shuffle_block={cfg.shuffle_block}; "
@@ -424,11 +602,22 @@ class Trainer:
             mstate = M.init_metrics(self.device)
             order, valid = self._epoch_order(n, padded, epoch, orders)
             for s in range(steps):
-                sl = slice(s * batch_size, (s + 1) * batch_size)
+                # This rank's rows of global batch s (all of it on one device).
+                sl = slice(s * batch_size + lo, s * batch_size + lo + per)
                 feats, labels = self._gather(cols, labels_all, order[sl])
                 gen = self.step_generator(epoch, s) if wants_rng else None
+                if gen is not None and plan is not None:
+                    if draw is None:
+                        raise NotImplementedError(
+                            "a wants_rng loss under a plan needs loss_fn.draw to make "
+                            "the global batch's draws")
+                    glob = slice(s * batch_size, (s + 1) * batch_size)
+                    gfeats = draw(gen, self._gather(cols, labels_all, order[glob])[0])
+                    feats, gen = {k: v[lo:lo + per] for k, v in gfeats.items()}, None
                 params, opt_state, mstate = self._train_step(
                     params, opt_state, mstate, feats, labels, valid[sl], gen)
+            if plan is not None:
+                mstate = self._metrics_over_data(mstate)
             if t_steady is None:
                 self._sync()
                 t_steady = time.perf_counter()
@@ -442,10 +631,8 @@ class Trainer:
                       f"pr_auc={em['pr_auc']:.4f}")
             done = epoch + 1
             if state_dir and (done == epochs or (checkpoint_every and done % checkpoint_every == 0)):
-                ckpt.save_train_state(self.model, params, opt_state, done, state_dir,
-                                      keep=cfg.checkpoint_keep)
-        if self.sparse_tables:
-            params = self._materialize_tables(params, opt_state)
+                self._save_state(params, opt_state, done, state_dir)
+        params = self.whole_params(params, opt_state)
         self._sync()
         end = time.perf_counter()
         if timed_examples > 0:
@@ -460,6 +647,24 @@ class Trainer:
                 print("test: " + " ".join(f"{k}={v:.4f}" for k, v in eval_metrics.items()))
         return TrainResult(params=params, history=history, eval_metrics=eval_metrics,
                            examples_per_sec=rate, opt_state=opt_state)
+
+    def _metrics_over_data(self, mstate: M.MetricState) -> M.MetricState:
+        """The metric state summed over `data` (one collective)."""
+        parts = self._sum_over_data(dict(zip(M.MetricState._fields, mstate)))
+        return M.MetricState(**parts)
+
+    def _save_state(self, params, opt_state, next_epoch: int, state_dir: str) -> None:
+        """`checkpoint.save_train_state`; under a plan the whole state,
+        gathered and written by rank 0 while the others wait."""
+        if self.plan is not None:
+            params, opt_state = self.gather_state(params, opt_state)
+            if self.plan.rank != 0:
+                self.plan.barrier()
+                return
+        ckpt.save_train_state(self.model, params, opt_state, next_epoch, state_dir,
+                              keep=self.config.checkpoint_keep)
+        if self.plan is not None:
+            self.plan.barrier()
 
     # ------------------------------------------------------------------
     def predict(self, params, ds: EncodedDataset, batch_size: Optional[int] = None) -> np.ndarray:

@@ -87,12 +87,17 @@ class GroupedAdamState(NamedTuple):
     master_big: Any = ()
 
 
-def split_leaves(tree: Dict[str, torch.Tensor], small_max_elems: int = SMALL_LEAF_MAX_ELEMS):
+def split_leaves(tree: Dict[str, torch.Tensor], small_max_elems: int = SMALL_LEAF_MAX_ELEMS,
+                 sizes: Optional[Dict[str, int]] = None):
     """Names in the tree's order: (small float32 leaves, which ride the
-    fused vector; the rest, per leaf)."""
+    fused vector; the rest, per leaf). `sizes` (name -> element count)
+    decides in place of the leaves' own sizes: a leaf row-sharded over a
+    mesh is split by its whole size, as the JAX package's global
+    `x.size` splits it."""
     small, big = [], []
     for k, v in tree.items():
-        is_small = v.numel() < small_max_elems and v.dtype == torch.float32
+        n = v.numel() if sizes is None else sizes.get(k, v.numel())
+        is_small = n < small_max_elems and v.dtype == torch.float32
         (small if is_small else big).append(k)
     return small, big
 
@@ -110,6 +115,9 @@ class GroupedAdam:
         self.small_max_elems = small_max_elems
         self.big_moment_dtype = big_moment_dtype
         self.master_weights = master_weights
+        #: The whole leaves' element counts under a mesh (`split_leaves`);
+        #: None: each leaf's own.
+        self.leaf_sizes: Optional[Dict[str, int]] = None
 
     def _needs_master(self, leaf: torch.Tensor) -> bool:
         return (self.master_weights and leaf.is_floating_point()
@@ -129,7 +137,7 @@ class GroupedAdam:
         return torch.cat([tree[k].reshape(-1) for k in names])
 
     def init(self, params: Dict[str, torch.Tensor]) -> GroupedAdamState:
-        small, big = split_leaves(params, self.small_max_elems)
+        small, big = split_leaves(params, self.small_max_elems, self.leaf_sizes)
         like = next(iter(params.values()))
         vec = self._vec(params, small, like)
         masters = ([params[k].float() if self._needs_master(params[k]) else None for k in big]
@@ -144,7 +152,7 @@ class GroupedAdam:
 
     def update(self, grads: Dict[str, torch.Tensor], state: GroupedAdamState,
                params: Optional[Dict[str, torch.Tensor]] = None):
-        small, big = split_leaves(grads, self.small_max_elems)
+        small, big = split_leaves(grads, self.small_max_elems, self.leaf_sizes)
         like = next(iter(grads.values()))
         count = state.count + 1
         c1, c2 = bias_corrections(count, self.b1, self.b2)

@@ -78,12 +78,18 @@ def test_train_config_carries_every_field_and_default():
 
 
 def test_trainer_raises_for_what_is_not_ported():
-    """Mesh plans still raise; the block shuffle and train-state
-    checkpoints, which raised before, are ported (tests/test_torch_narrow.py,
-    tests/test_torch_train_state.py)."""
+    """Mesh plans, the block shuffle and train-state checkpoints, which
+    raised before, are ported (tests/test_torch_parallel.py,
+    tests/test_torch_narrow.py, tests/test_torch_train_state.py); a batch
+    that does not split over the data ranks raises."""
+    from sparrowrecsys_torch.parallel import MeshPlan, build_mesh
+
     model = build_model("deepfm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, plan=object(), device="cpu")
+    Trainer(model, plan=build_mesh(), device="cpu")
+    ds = tsyn.synthetic_ctr_dataset(8)
+    with pytest.raises(ValueError, match="data ranks"):
+        Trainer(model, TrainConfig(batch_size=5), plan=MeshPlan(n_data=2),
+                device="cpu").fit(ds, verbose=False)
     Trainer(model, TrainConfig(shuffle_mode="blocks"), device="cpu")
     with pytest.raises(ValueError, match="big_moment_dtype"):
         Trainer(model, TrainConfig(big_moment_dtype="int8"), device="cpu")

@@ -30,7 +30,8 @@ def test_import_every_submodule_pulls_in_no_jax():
     n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20, out.stdout
     for module in ("nearline.stream", "utils.profiling", "data.device_pipeline",
-                   "serving.sidecar"):
+                   "serving.sidecar", "parallel", "parallel.mesh", "parallel.scaling",
+                   "parallel.collectives", "tools.dist_bringup", "tools.dryrun_multichip"):
         assert f"sparrowrecsys_torch.{module}" in names.split(","), module
     assert bad == "[]", out.stdout
 

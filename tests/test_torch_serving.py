@@ -232,6 +232,43 @@ def test_http_round_trip_and_metrics(servers):
         tserver.stop()
 
 
+def test_metrics_bodies_match_jax(servers, monkeypatch):
+    """The same requests over HTTP to both servers, each with a fresh
+    registry: both /metrics bodies have the same top-level keys ("gauges"
+    among them) and the same counters with the same values. uptime_sec's
+    value and the batchers' timings differ by nature and are left out."""
+    import sparrowrecsys_torch.utils.observability as tobs
+    import sparrowrecsys_tpu.utils.observability as jobs
+
+    monkeypatch.setattr(tobs, "_registry", None)
+    monkeypatch.setattr(jobs, "_registry", None)
+    paths = ["/getmovie?id=1", "/getuser?id=14887",
+             "/getrecommendation?genre=Action&size=8&sortby=rating",
+             "/getsimilarmovie?movieId=1&size=16&model=emb",
+             "/getrecforyou?id=14887&size=8&model=din", "/index.html", "/nope.html"]
+    bodies = []
+    for server in servers:
+        server.start()
+        try:
+            base = f"http://localhost:{server.port}"
+            for path in paths:
+                try:
+                    urllib.request.urlopen(base + path, timeout=30).read()
+                except urllib.error.HTTPError as e:
+                    assert e.code == 404 and path == "/nope.html"
+            with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+                bodies.append(json.loads(r.read()))
+        finally:
+            server.stop()
+    jsnap, tsnap = bodies
+    assert set(tsnap) == set(jsnap)
+    assert {"counters", "gauges", "uptime_sec"} <= set(tsnap)
+    assert tsnap["counters"] == jsnap["counters"]
+    assert tsnap["counters"]["http.static"] == 3   # two pages and /metrics itself
+    assert tsnap["gauges"] == jsnap["gauges"]
+    assert set(tsnap["batchers"]) == set(jsnap["batchers"])
+
+
 def test_cuda_default_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--cpu"):
