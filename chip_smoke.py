@@ -6,20 +6,14 @@
 Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compile the hand-written kernels (csrc/*.cu) with nvcc.
-3. kernels: each of the six kernels (fm_cross and din_attention with
-   their backwards, rows_gather, rows_write) against its plain PyTorch
-   version on the card, at the serving or training path's shapes and at
-   the large shapes of KERNELS.md, timed with CUDA events, and by
-   torch.profiler for the device's own time, beside its bound and, for
-   the row kernels, the PyTorch call computing the same function; each
-   timed call reads inputs that are not in L2 (the row kernels at
-   [2^21, D]: a new id set each call, `row_sets`). The row kernels run
-   at the six row calls the DeepFMv2 trainer makes per step, kernel and
-   library call timed in turns, and their wrappers' host time is taken
-   part by part (`host_path`). The DIN backward's device time is the
-   whole call's: its per-step kernel, the reduce and the weight-gradient
-   products (cuBLAS), with the kernel's own time, the products' share,
-   and the products alone beside one torch.mm each.
+3. kernels (`tools.kernel_bench.run`): each of the six kernels (fm_cross
+   and din_attention with their backwards, rows_gather, rows_write)
+   against its plain PyTorch version on the card, at the serving or
+   training path's shapes and at the large shapes of KERNELS.md, timed
+   (CUDA events, and torch.profiler for the device's own time) on inputs
+   that are not in L2, beside its bound and, for the row kernels, the
+   PyTorch call computing the same function; the row wrappers' host time
+   part by part (`kernel_bench.host_path`).
 4. serving: the DIN and DeepFMv2 exports behind the port's HTTP server
    on the card; the five endpoints and 2 x RANKED_REQUESTS concurrent
    ranked requests over HTTP (several seconds), with the kernels' launch
@@ -102,9 +96,21 @@ Phases, each fatal on failure:
    fit (a correctness run, no speed); (c) `sharded_cosine_topk` over the
    two model ranks at Q=256, D=64, k=10 over 1,000,000 items, raw and
    prepared, with the single card's indices. Every kernel must launch.
-10. summary: one {"kernels": [...]} line (each kernel's launches, phase
-   9's among them under `launches_mesh`), then the last line,
-   {"ok": true, "device": {...}}.
+10. the last of the JAX package (`[tail]` lines): (a) the C++ CSV loader
+   built with the host compiler (its seconds), `load_samples` on the
+   golden file equal to `load_samples_csv` in value and dtype, `data.run
+   --native` writing the CSVs the job writes without it, and a
+   `DataManager` over the bundled data equal to one over the Python
+   parse, each counted as a native parse; (b) the native, numpy and
+   csv-module parses of phase 6's 1,000,000 events timed, with their
+   ratios; (c) `tools.seq_signal` on the `sequence` generator (1,000,000
+   train rows, 3 epochs, one seed, DIN and DeepFM) held to
+   `seq_signal.json`'s ordering (oracle > DIN >= DeepFM + 0.05, DeepFM
+   < 0.55), with the DIN kernels' launches; (d) `tools.mfu_zoo` at its
+   widths, 3 warm-up and 5 timed steps a model, one row each.
+11. summary: one {"kernels": [...]} line (each kernel's launches, phase
+   9's among them under `launches_mesh` and phase 10's under
+   `launches_tail`), then the last line, {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
@@ -116,7 +122,6 @@ import itertools
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -125,17 +130,21 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
-#: outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-#: The H100's L2 (50 MB). A timed kernel cycles through copies of its
-#: inputs that span four times this, so each call reads from HBM, as the
-#: bound assumes, and not from the copy the call before left in L2.
-L2_BYTES = 50 * 2 ** 20
-#: The serving path's launch shapes: 8 requests x 800 candidates padded
-#: to 8192 rows per wave; DeepFMv2 5 fields of 64, DIN T=5, D=10, H=32.
-WAVE_ROWS = 8192
+sys.path.insert(0, REPO)
+try:
+    # Phase 3 and the timing helpers of every phase.
+    from sparrowrecsys_torch.ops.kernels import launch_counters as counters
+    from sparrowrecsys_torch.tools import kernel_bench
+    from sparrowrecsys_torch.tools.kernel_bench import (
+        card_label,
+        device_us,
+        event_ms,
+        in_turns,
+        timed,
+        unit_preactivations,
+    )
+except ImportError:  # no package beside the script: main() says so
+    kernel_bench = None
 #: The training phase's batch (bench.py's) and steps per epoch.
 TRAIN_BATCH = 65536
 TRAIN_STEPS = 8
@@ -154,605 +163,6 @@ ZOO_REQUESTS = 256
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def event_ms(fn, device: str = "cuda"):
-    """(fn(), ms) of one run between two CUDA events (the host clock on
-    the CPU)."""
-    import torch
-
-    if device != "cuda":
-        t0 = time.perf_counter()
-        out = fn()
-        return out, (time.perf_counter() - t0) * 1e3
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def timed(fn, iters: int) -> float:
-    """Mean ms of `fn()` over `iters` runs after warm-up, by CUDA events."""
-    for _ in range(3):
-        fn()
-
-    def runs():
-        for _ in range(iters):
-            fn()
-
-    return event_ms(runs)[1] / iters
-
-
-def device_us(prof) -> dict:
-    """Summed duration in us of each device operation (kernel or copy)
-    that `prof` (a finished torch.profiler run) recorded, by name, and
-    their number under the key None."""
-    from torch.autograd import DeviceType
-
-    out = {None: 0}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
-            out[None] += 1
-    return out
-
-
-def device_ms(fn, iters: int, marker: str = ""):
-    """Mean device time per call of `fn()` under torch.profiler: the
-    device operations whose name holds `marker`. Back-to-back CUDA events
-    read the host's launch rate for a kernel of a few microseconds; this
-    reads the device's own time. None when no such operation ran."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [v for k, v in device_us(prof).items() if k is not None and marker in k]
-    return sum(us) / 1e3 / iters if us else None
-
-
-def cycling(inputs, nbytes: int):
-    """A function that returns, call after call, `inputs` and copies of it
-    (each a tuple of tensors of `nbytes` in all), enough copies to span
-    4 x L2_BYTES."""
-    import torch
-
-    copies = max(1, math.ceil(4 * L2_BYTES / nbytes))
-    sets = [inputs] + [tuple(torch.clone(a) for a in inputs) for _ in range(copies - 1)]
-    return itertools.cycle(sets).__next__
-
-
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def in_turns(fns: dict, measure, rounds: int = 8) -> dict:
-    """{name: (median, least, most)} of `measure(fn)` over `rounds` rounds
-    for each of `fns`, taken in turns with the order reversed every other
-    round (a b, b a, ...), so that a drift in the host's speed falls on
-    each alike. Back-to-back CUDA events on a kernel of a few
-    microseconds read the host's rate, which moves by a third between
-    runs on a host shared with other work."""
-    got = {k: [] for k in fns}
-    for r in range(rounds):
-        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            got[k].append(measure(fns[k]))
-    return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
-
-
-def host_us(fn, iters: int = 2000) -> float:
-    """Host microseconds per call of `fn()`: `time.perf_counter` over
-    `iters` calls with no synchronisation in between. A launch queues in
-    about the time the device takes to run a row kernel, so the queue
-    does not fill and this reads what the host spends on a call."""
-    import torch
-
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    us = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def host_path():
-    """The row wrappers' host time per call, whole and part by part, at
-    the trainer's shape (DeepFMv2's fused user buffer [30001, 30] f32, the
-    touched ids of one synthetic batch as the row-Adam routes them): the
-    whole call, the input checks (`rowio._check`), the lookup of the
-    launch's scalars, a ctypes call of each entry point with the real
-    pointers and the scalars of U = 0 (the C side returns before it reads
-    the device or launches) and with the real scalars (the launch
-    alone), and the PyTorch calls computing the same functions. In us,
-    host clock."""
-    import torch
-
-    from sparrowrecsys_torch.data.synthetic import synthetic_ctr_dataset
-    from sparrowrecsys_torch.ops import kernels, rowio
-    from sparrowrecsys_torch.training.row_optim import _touched_rows
-
-    users = torch.from_numpy(synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features["userId"])
-    uids, safe = _touched_rows(users.cuda(), 30001)
-    table = torch.randn(30001, 30, device="cuda")
-    rows = torch.randn(TRAIN_BATCH, 30, device="cuda")
-    lib = kernels.library()
-    idx = table.get_device()
-    valid = uids < table.shape[0]
-    safe_long, valid_ids, valid_rows = safe.long(), uids[valid].long(), rows[valid]
-    stream = kernels.stream_of(idx)
-    out = {}
-    for kind, args in (("rows_gather", (table, safe)), ("rows_write", (table, uids, rows))):
-        entry = getattr(lib, kind)
-        ptrs = (table.data_ptr(), args[1].data_ptr(), rows.data_ptr())
-        misalign = (ptrs[0] | ptrs[2]) & 15
-        scalars = rowio._scalars(120, misalign, TRAIN_BATCH, table.shape[0], idx)
-        empty = rowio._scalars(120, misalign, 0, table.shape[0], idx)
-        out[kind] = {
-            "call": host_us(lambda: getattr(rowio, kind)(*args)),
-            "check": host_us(lambda: rowio._check(kind, idx, *args)),
-            "scalars": host_us(
-                lambda: rowio._scalars(120, misalign, TRAIN_BATCH, table.shape[0], idx)),
-            "ctypes_empty_launch": host_us(lambda: entry(*ptrs, empty, stream)),
-            "ctypes_launch": host_us(lambda: entry(*ptrs, scalars, stream)),
-        }
-    out["library_calls"] = {
-        "index_select": host_us(lambda: torch.index_select(table, 0, safe_long)),
-        "index_copy_": host_us(lambda: table.index_copy_(0, valid_ids, valid_rows)),
-    }
-    log(f"[kernels] host path, us per call: {json.dumps(out)}")
-    return out
-
-
-# ---- phase 3 -----------------------------------------------------------------
-
-
-def check_fm_cross(shape, dtype, iters):
-    import torch
-
-    from sparrowrecsys_torch.ops.fm import fm_cross, fm_cross_plain
-
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-    out, ref = fm_cross(x), fm_cross_plain(x)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    # float32: summation order and one fma differ, 1e-5 of the output's
-    # scale; bfloat16: one rounding of the output, 1e-2 of its scale.
-    tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
-    if not err <= tol:
-        raise AssertionError(f"fm_cross {shape} {dtype}: max err {err} > {tol}")
-    b, f, d = shape
-    size = x.element_size()
-    nbytes, flops = (b * f * d + b * d) * size, 3 * b * f * d + 2 * b * d
-    t_bound, by = bound(nbytes, flops)
-    nxt = cycling((x,), x.numel() * size)
-    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, "tol": tol,
-           "ms": timed(lambda: fm_cross(*nxt()), iters),
-           "plain_ms": timed(lambda: fm_cross_plain(*nxt()), iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           "device_ms": device_ms(lambda: fm_cross(*nxt()), iters, "fm_cross_kernel"),
-           "plain_device_ms": device_ms(lambda: fm_cross_plain(*nxt()), iters)}
-    log(f"[kernels] fm_cross {json.dumps(row)}")
-    return row
-
-
-def live_counts(hist):
-    """(live steps, rows with a live step) of a DIN history [B, T, D]: a
-    step is live when its row has a non-zero element."""
-    live = (hist != 0).any(dim=-1)
-    return int(live.sum().item()), int(live.any(dim=-1).sum().item())
-
-
-def check_din_attention(b, t, d, h, iters):
-    import torch
-
-    from sparrowrecsys_torch.ops.attention import din_attention, din_attention_plain
-
-    g = torch.Generator(device="cuda").manual_seed(1)
-    hist = torch.randn(b, t, d, generator=g, device="cuda")
-    # Padded history steps are all-zero rows (mask_zero); about a third.
-    pad = torch.rand(b, t, 1, generator=g, device="cuda") < 0.3
-    hist = hist.masked_fill(pad, 0.0).contiguous()
-    cand = torch.randn(b, d, generator=g, device="cuda")
-    w1 = torch.randn(4 * d, h, generator=g, device="cuda") / (4 * d) ** 0.5
-    b1 = torch.randn(h, generator=g, device="cuda") * 0.1
-    alpha = torch.randn(h, generator=g, device="cuda") * 0.1
-    w2 = torch.randn(h, 1, generator=g, device="cuda") / h ** 0.5
-    b2 = torch.randn(1, generator=g, device="cuda") * 0.1
-    args = (hist, cand, w1, b1, alpha, w2, b2)
-    out, ref = din_attention(*args), din_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    # float32 with another summation order (cuBLAS in the plain version):
-    # 1e-5 relative, and 1e-5 of the output's scale absolute.
-    tol_ok = torch.allclose(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
-    if not tol_ok:
-        raise AssertionError(f"din_attention {(b, t, d, h)}: max err {err}")
-    nbytes = (b * t * d + b * d + 4 * d * h + 3 * h + 1 + b * d) * 4
-    # The candidate's share c @ (wc-wa) + b1 is one [D, H] product per
-    # row; each step adds h @ (wa+wb) + (h*c) @ wd, H for the second
-    # layer. An all-zero step gets weight 0 whatever the unit computes, so
-    # the work this data needs is the step part over the non-zero steps,
-    # and the row part over the rows with one.
-    live_steps, live_rows = live_counts(hist)
-    flops = 2 * (live_steps * (2 * d * h + h) + live_rows * d * h)
-    t_bound, by = bound(nbytes, flops)
-    nxt = cycling((hist, cand), (b * t * d + b * d) * 4)
-    weights = args[2:]
-    row = {"shape": [b, t, d, h], "dtype": "float32", "max_abs_err": err,
-           "ms": timed(lambda: din_attention(*nxt(), *weights), iters),
-           "plain_ms": timed(lambda: din_attention_plain(*nxt(), *weights), iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           "device_ms": device_ms(lambda: din_attention(*nxt(), *weights), iters,
-                                  "din_attention_kernel"),
-           "plain_device_ms": device_ms(lambda: din_attention_plain(*nxt(), *weights), iters)}
-    log(f"[kernels] din_attention {json.dumps(row)}")
-    return row
-
-
-def fm_bwd_tolerance(x, g, ref):
-    """Per element of dx = 2 g (s - x_f), what two correct evaluations may
-    differ by: float32 roundings of s and of the products, a few float32
-    ulps of the terms summed (2^-20 * 2|g| * sum_f |x_f|); in bfloat16
-    also one rounding of dx, one bf16 ulp (2^-7 |dx|). A sum s kept in
-    bfloat16 is off by bf16 ulps of |s| and fails it
-    (`fm_cross_bwd_bf16_sum`)."""
-    import torch
-
-    tol = 2.0 ** -20 * 2 * g.float().abs()[:, None, :] * x.float().abs().sum(1, keepdim=True)
-    if x.dtype == torch.bfloat16:
-        tol = tol + 2.0 ** -7 * ref.float().abs()
-    return tol
-
-
-def fm_cross_bwd_bf16_sum(x, g):
-    """dx with s summed in bfloat16: the precision fault the kernel must
-    not have, to show the tolerance catches it."""
-    s = x[:, 0]
-    for f in range(1, x.shape[1]):
-        s = s + x[:, f]                                   # bf16 + bf16 -> bf16
-    return (2 * g.float()[:, None, :] * (s.float()[:, None, :] - x.float())).to(x.dtype)
-
-
-def check_fm_cross_bwd(shape, dtype, iters):
-    import torch
-
-    from sparrowrecsys_torch.ops.fm import fm_cross_bwd, fm_cross_bwd_plain
-
-    g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-    go = torch.randn((shape[0], shape[2]), generator=g, device="cuda").to(dtype)
-    out, ref = fm_cross_bwd(x, go), fm_cross_bwd_plain(x, go)
-    torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
-    tol = fm_bwd_tolerance(x, go, ref)
-    if not bool((diff <= tol).all()):
-        raise AssertionError(f"fm_cross_bwd {shape} {dtype}: max err {err}, "
-                             f"{int((diff > tol).sum())} elements beyond the tolerance")
-    # The largest share of its own tolerance an element uses.
-    extra = {"err_over_tol_max": (diff / tol.clamp_min(1e-30)).max().item()}
-    if dtype == torch.bfloat16:
-        over = int(((fm_cross_bwd_bf16_sum(x, go).float() - ref.float()).abs() > tol).sum())
-        if over == 0:
-            raise AssertionError("fm_cross_bwd: the tolerance passes a sum kept in bfloat16")
-        extra["bf16_sum_elements_beyond_tol"] = over
-    del diff, tol
-    b, f, d = shape
-    size = x.element_size()
-    # Bytes: read x and g, write dx. Operations: F adds per column for s,
-    # then a subtract and a multiply per element (2g once per column).
-    nbytes, flops = (2 * b * f * d + b * d) * size, 3 * b * f * d + b * d
-    t_bound, by = bound(nbytes, flops)
-    nxt = cycling((x, go), (x.numel() + go.numel()) * size)
-    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, **extra,
-           "ms": timed(lambda: fm_cross_bwd(*nxt()), iters),
-           "plain_ms": timed(lambda: fm_cross_bwd_plain(*nxt()), iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           "device_ms": device_ms(lambda: fm_cross_bwd(*nxt()), iters, "fm_cross_bwd_kernel"),
-           "plain_device_ms": device_ms(lambda: fm_cross_bwd_plain(*nxt()), iters)}
-    log(f"[kernels] fm_cross_bwd {json.dumps(row)}")
-    return row
-
-
-def unit_preactivations(hist, cand, w1, b1):
-    """The DIN unit's pre-activations [B, T, H]: [h, c, h*c] @ the folded
-    weight + b1, as the plain version computes them."""
-    import torch
-
-    from sparrowrecsys_torch.ops.attention import _fold
-
-    ce = cand[:, None, :].expand_as(hist)
-    return torch.cat([hist, ce, hist * ce], -1) @ _fold(w1, hist.shape[-1]) + b1
-
-
-def din_bwd_flops(d, h, live_steps, live_rows):
-    """Operations of the DIN unit's backward for this data, each multiply-
-    add counted once as two operations. Per live step: the recompute
-    (2*D*H + H), dh through the folded weight's wa+wb and wd blocks
-    (2*D*H), and the weight gradients dk0 = h^T dapre, dk2 = (h*c)^T dapre
-    (2*D*H), db1, dalpha, dw2 (3*H). Per row with a live step, on
-    sum_t dapre_t (the candidate's terms see the step only through dapre):
-    the candidate term of the recompute, dc's (wc-wa) dapre and
-    dk1 = c^T dapre (D*H each). A masked step needs none of it:
-    2 * (live_steps * (6*D*H + 4*H) + live_rows * 3*D*H)."""
-    return 2 * (live_steps * (6 * d * h + 4 * h) + live_rows * 3 * d * h)
-
-
-def check_din_attention_bwd(b, t, d, h, iters):
-    import torch
-
-    from sparrowrecsys_torch.ops.attention import (
-        _din_attention_bwd_steps,
-        _din_weight_grads,
-        _tn,
-        din_attention_bwd,
-        din_attention_bwd_plain,
-    )
-
-    g = torch.Generator(device="cuda").manual_seed(1)
-    hist = torch.randn(b, t, d, generator=g, device="cuda")
-    pad = torch.rand(b, t, 1, generator=g, device="cuda") < 0.3
-    hist = hist.masked_fill(pad, 0.0).contiguous()
-    cand = torch.randn(b, d, generator=g, device="cuda")
-    w1 = torch.randn(4 * d, h, generator=g, device="cuda") / (4 * d) ** 0.5
-    b1 = torch.randn(h, generator=g, device="cuda") * 0.1
-    alpha = torch.randn(h, generator=g, device="cuda") * 0.1
-    w2 = torch.randn(h, 1, generator=g, device="cuda") / h ** 0.5
-    b2 = torch.randn(1, generator=g, device="cuda") * 0.1
-    go = torch.randn(b, d, generator=g, device="cuda")
-    weights = (w1, b1, alpha, w2, b2)
-    # The PReLU's kink: where a pre-activation lies within rounding of 0
-    # (|a| < 1e-3; the kernel's and cuBLAS's sums differ by about 1e-5 at
-    # D=128), the two may take different branches. That step's gradients
-    # then differ by (1 - alpha) * da, a true discontinuity and not an
-    # error: its dh, its row's dc, and through the step's share every
-    # weight gradient (by up to |h| (1 - alpha) |w2 dl|, about 0.3 at
-    # D=128). Those steps alone are zeroed in the history and counted:
-    # they become masked steps, the other steps' pre-activations do not
-    # depend on them, and every other step is compared in every gradient.
-    kink = (unit_preactivations(hist, cand, w1, b1).abs() < 1e-3).any(-1) \
-        & (hist != 0).any(-1)                                         # [B, T]
-    kink_steps = int(kink.sum().item())
-    hist = hist.masked_fill(kink[..., None], 0.0).contiguous()
-    del kink
-    got = din_attention_bwd(hist, cand, *weights, go)
-    ref = din_attention_bwd_plain(hist, cand, *weights, go)
-    again = din_attention_bwd(hist, cand, *weights, go)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, x, r, y in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref, again):
-        # float32 sums over B*T in another order than cuBLAS: 1e-4
-        # relative and 1e-4 of the gradient's scale absolute.
-        scale = max(r.abs().max().item(), 1.0)
-        errs[name] = (x - r).abs().max().item()
-        if not torch.allclose(x, r, rtol=1e-4, atol=1e-4 * scale):
-            raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: max err {errs[name]}")
-        if not torch.equal(x, y):
-            raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: two runs differ")
-    del got, ref, again
-    live_steps, live_rows = live_counts(hist)
-    flops = din_bwd_flops(d, h, live_steps, live_rows)
-    n_w = 4 * d * h + 3 * h + 1
-    nbytes = (2 * (b * t * d + b * d) + b * d + 2 * n_w) * 4
-    t_bound, by = bound(nbytes, flops)
-    nxt = cycling((hist, cand, go), (b * t * d + 2 * b * d) * 4)
-
-    def call(fn):
-        hh, cc, gg = nxt()
-        return fn(hh, cc, *weights, gg)
-
-    row = {"shape": [b, t, d, h], "dtype": "float32", "max_abs_err": max(errs.values()),
-           "errs": errs, "deterministic": True, "live_steps": live_steps,
-           "live_rows": live_rows, "kink_steps_zeroed": kink_steps,
-           "kink_share": kink_steps / max(1, live_steps + kink_steps),
-           "flops": flops,
-           "ms": timed(lambda: call(din_attention_bwd), iters),
-           "plain_ms": timed(lambda: call(din_attention_bwd_plain), iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           # Every device operation of the call: the per-step kernel, its
-           # reduce, and the weight-gradient products (cuBLAS) with their
-           # allocations' and reductions' kernels.
-           "device_ms": device_ms(lambda: call(din_attention_bwd), iters),
-           "kernel_device_ms": device_ms(lambda: call(din_attention_bwd), iters,
-                                         "din_attention_bwd"),
-           "plain_device_ms": device_ms(lambda: call(din_attention_bwd_plain), iters)}
-    row["products_share"] = 1 - row["kernel_device_ms"] / row["device_ms"]
-    # The weight-gradient products alone on this call's per-step terms:
-    # the wrapper's sliced products, one torch.mm each, and the wrapper's
-    # slicing on h and h*c apart (the products if the kernel wrote h*c
-    # alone: dapre read twice in place of the copy of h).
-    _, _, dapre, hx, dsum, _ = _din_attention_bwd_steps(hist, cand, *weights, go)
-    flat, hc = hist.view(-1, d), hx[:, d:].contiguous()
-    row["products_device_ms"] = device_ms(lambda: _din_weight_grads(hx, dapre, cand, dsum), iters)
-    row["mm_products_device_ms"] = device_ms(
-        lambda: (torch.mm(hx.T, dapre), torch.mm(cand.T, dsum)), iters)
-    row["split_products_device_ms"] = device_ms(
-        lambda: (_tn(flat, dapre), _tn(hc, dapre), _tn(cand, dsum)), iters)
-    log(f"[kernels] din_attention_bwd {json.dumps(row)}")
-    return row
-
-
-def row_sets(table, id_sets, rows=None):
-    """Input sets for timed row calls, taken in turn, each (table, ids,
-    rows or None, in-range ids as int64, their rows): with one id set,
-    copies of the table, ids and rows that span 4 x L2_BYTES; with several
-    (a table too large to copy), each id set on the one table with a copy
-    of the rows, `rows_cases` drawing enough id sets that the rows they
-    touch span 4 x L2_BYTES. So no timed call finds its rows in L2."""
-    import torch
-
-    def one(t, i, r):
-        keep = (i >= 0) & (i < t.shape[0])
-        return (t, i, r, i[keep].long(), None if r is None else r[keep])
-
-    if len(id_sets) > 1:
-        return [one(table, i, None if rows is None else rows.clone()) for i in id_sets]
-    inputs = (table, id_sets[0]) + (() if rows is None else (rows,))
-    nbytes = sum(a.numel() * a.element_size() for a in inputs)
-    copies = max(1, math.ceil(4 * L2_BYTES / nbytes))
-    sets = [inputs] + [tuple(torch.clone(a) for a in inputs) for _ in range(copies - 1)]
-    return [one(s[0], s[1], s[2] if rows is not None else None) for s in sets]
-
-
-def check_rows(kind, table, id_sets, iters, label):
-    """rows_gather or rows_write on `table` and the first of `id_sets`
-    against the plain version (a row copy is exact: bit-equal), timed over
-    `row_sets` beside the bound and one PyTorch call computing the same
-    function (`index_select`, or `index_copy_` on the in-range ids), which
-    the port never calls: CUDA events and host time per call (`host_us`),
-    kernel and library call in turns (`in_turns`, medians), and device
-    time under torch.profiler; with the kernel's launch plan."""
-    import torch
-
-    from sparrowrecsys_torch.ops import rowio
-    from sparrowrecsys_torch.ops.rowio import (
-        rows_gather,
-        rows_gather_plain,
-        rows_write,
-        rows_write_plain,
-    )
-
-    ids = id_sets[0]
-    u, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
-    valid = (ids >= 0) & (ids < table.shape[0])
-    # The plan, where the package has one (a package from before the
-    # launch plan is timed with this yardstick too).
-    launch_plan = getattr(rowio, "launch_plan", None)
-    if kind == "rows_gather":
-        before = rows_gather.launches
-        out, ref = rows_gather(table, ids), rows_gather_plain(table, ids)
-        launched = rows_gather.launches - before
-        ok = torch.equal(out, ref)
-        plan = launch_plan and launch_plan(row_bytes, table.data_ptr(), out.data_ptr(), u)
-        del out, ref
-        # Bytes: read each distinct row once (the trainer's drop slots are
-        # all clamped to row V-1) and the U ids, write U rows.
-        n_read = int(torch.unique(ids).numel())
-        nbytes = (n_read + u) * row_bytes + 4 * u
-        sets = row_sets(table, id_sets)
-
-        def kernel():
-            t, i, _, _, _ = nxt()
-            return rows_gather(t, i)
-
-        def plain():
-            t, i, _, _, _ = nxt()
-            return rows_gather_plain(t, i)
-
-        def library():
-            t, _, _, long_ids, _ = nxt()
-            return torch.index_select(t, 0, long_ids)
-
-        marker = "rows_gather_kernel"
-    else:
-        rows = torch.randn(u, table.shape[1], device="cuda").to(table.dtype)
-        before = rows_write.launches
-        out = rows_write(table.clone(), ids, rows)
-        launched = rows_write.launches - before
-        ref = rows_write_plain(table.clone(), ids, rows)
-        ok = torch.equal(out, ref)
-        plan = launch_plan and launch_plan(row_bytes, table.data_ptr(), rows.data_ptr(), u)
-        del out, ref
-        n_read = int(valid.sum().item())
-        # Bytes: read the in-range rows and every id, write the in-range rows.
-        nbytes = 2 * n_read * row_bytes + 4 * u
-        sets = row_sets(table, id_sets, rows)
-
-        def kernel():
-            t, i, r, _, _ = nxt()
-            return rows_write(t, i, r)
-
-        def plain():
-            t, i, r, _, _ = nxt()
-            return rows_write_plain(t, i, r)
-
-        def library():
-            t, _, _, valid_ids, valid_rows = nxt()
-            return t.index_copy_(0, valid_ids, valid_rows)
-
-        marker = "rows_write_kernel"
-    torch.cuda.synchronize()
-    if not ok or launched != 1:
-        raise AssertionError(f"{kind} {label}: differs from its plain version or launched "
-                             f"{launched} times")
-    nxt = itertools.cycle(sets).__next__
-    t_bound, by = bound(nbytes, 0)
-    pair = {"kernel": kernel, "library": library}
-    ms = in_turns(pair, lambda fn: timed(fn, iters))
-    us = in_turns(pair, lambda fn: host_us(fn, 500))
-    row = {"shape": list(table.shape), "ids": u, "in_range": int(valid.sum().item()),
-           "rows_read": n_read, "bytes": nbytes, "input_sets": len(sets),
-           "plan": plan and plan._asdict(),
-           "dtype": str(table.dtype).replace("torch.", ""), "label": label, "max_abs_err": 0.0,
-           "ms": ms["kernel"][0], "plain_ms": timed(plain, iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": ms["library"][0],
-           "ms_range": ms["kernel"][1:], "library_ms_range": ms["library"][1:],
-           "device_ms": device_ms(kernel, iters, marker),
-           "plain_device_ms": device_ms(plain, iters),
-           "library_device_ms": device_ms(library, iters),
-           "host_us": us["kernel"][0], "library_host_us": us["library"][0]}
-    log(f"[kernels] {kind} {json.dumps(row)}")
-    return row
-
-
-def rows_cases(iters_small, iters_large):
-    """Both row kernels at the six calls the trainer makes per step
-    (DeepFMv2's lazy row-Adam on its user and movie tables: the [V, 3D]
-    buffer gather, the [V, D] gradient gather and the buffer write, with
-    the ids of one synthetic batch of 65536 padded and routed as
-    `_touched_rows` does) and at the shapes of KERNELS.md ([2^21, 128] and
-    [2^21, 384] f32, and [2^21, 128] bf16, 65536 distinct sorted ids, a
-    new draw for each timed set until the rows they touch span 4 x
-    L2_BYTES)."""
-    import torch
-
-    from sparrowrecsys_torch.config import MOVIE_VOCAB_SIZE, USER_VOCAB_SIZE
-    from sparrowrecsys_torch.data.synthetic import synthetic_ctr_dataset
-    from sparrowrecsys_torch.training.row_optim import _touched_rows
-
-    out = {"rows_gather": [], "rows_write": []}
-    feats = synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features
-    tables = (("userId", USER_VOCAB_SIZE, "user"), ("movieId", MOVIE_VOCAB_SIZE, "movie"))
-    for col, v, name in tables:
-        uids, safe = _touched_rows(torch.from_numpy(feats[col]).cuda(), v)
-        buf = torch.randn(v, 30, device="cuda")
-        grad = torch.randn(v, 10, device="cuda")
-        out["rows_gather"].append(check_rows("rows_gather", buf, [safe], iters_small,
-                                             f"train {name} buffer"))
-        out["rows_write"].append(check_rows("rows_write", buf, [uids], iters_small,
-                                            f"train {name} buffer"))
-        out["rows_gather"].append(check_rows("rows_gather", grad, [safe], iters_small,
-                                             f"train {name} gradient"))
-        del buf, grad
-        torch.cuda.empty_cache()
-    g = torch.Generator(device="cuda").manual_seed(5)
-    for width, dtype in ((128, torch.float32), (384, torch.float32), (128, torch.bfloat16)):
-        v = 2 ** 21
-        table = torch.randn(v, width, generator=g, device="cuda").to(dtype)
-        # A call reads and writes 65536 rows.
-        touched = 2 * TRAIN_BATCH * width * table.element_size()
-        id_sets = [torch.randperm(v, generator=g, device="cuda")[:TRAIN_BATCH].sort().values
-                   .to(torch.int32) for _ in range(max(2, math.ceil(4 * L2_BYTES / touched)))]
-        for kind in out:
-            out[kind].append(check_rows(kind, table, id_sets, iters_large, "kernels_md"))
-        del table, id_sets
-        torch.cuda.empty_cache()
-    return out
 
 
 # ---- phase 4 -----------------------------------------------------------------
@@ -962,16 +372,6 @@ def profile_waves(scorer, wave_users, iters: int):
 
 
 # ---- phase 5 -----------------------------------------------------------------
-
-def counters():
-    """The kernels' wrappers (each carries its launch count), by name."""
-    from sparrowrecsys_torch.ops import attention, fm, rowio
-
-    return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
-            "din_attention": attention.din_attention,
-            "din_attention_bwd": attention.din_attention_bwd,
-            "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write}
-
 
 def reset_counts():
     for fn in counters().values():
@@ -2329,7 +1729,7 @@ def device_fit(device):
     from sparrowrecsys_torch.data.synthetic import SyntheticSpec, synthetic_ratings
     from sparrowrecsys_torch.ops import metrics as M
     from sparrowrecsys_torch.utils import StepTimer
-    from sparrowrecsys_torch.utils.profiling import hard_sync
+    from sparrowrecsys_torch.training.loop import hard_sync
 
     ratings = synthetic_ratings(SyntheticSpec(**SHIPPED_SPEC))
     catalog = load_movies(os.path.join(REPO, "data", "movies.csv"))
@@ -2635,14 +2035,6 @@ def mesh(msg: str) -> None:
     log(f"[mesh] {msg}")
 
 
-def card_label() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
 def mesh_case(name, device="cuda"):
     """A phase-9 fit case (`tools.dryrun_multichip`'s form) with its
     initial params, drawn once on the card and shared by every fit."""
@@ -2864,6 +2256,178 @@ def mesh_phase(device: str = "cuda"):
     return counts
 
 
+# ---- phase 10 ----------------------------------------------------------------
+
+#: Phase 10's `tools.seq_signal` run: the `sequence` generator at a cut of
+#: the JAX tool's default (2,000,000 train rows, 3 epochs, 3 seeds), DIN
+#: against DeepFM, and the gate of `seq_signal.json`'s ordering (the
+#: reference's TPU run: oracle 0.932 > DIN 0.774 >> DeepFM 0.508).
+SEQ_SIGNAL_ARGV = ["--n", "1000000", "--test-n", "500000", "--epochs", "3", "--seeds", "1",
+                   "--models", "din,deepfm", "--datasets", "sequence"]
+SEQ_DIN_MARGIN = 0.05
+SEQ_DEEPFM_CEILING = 0.55
+#: Phase 10's `tools.mfu_zoo` steps a model (the tool's widths otherwise).
+MFU_ARGV = ["--warmup", "3", "--steps", "5"]
+
+
+def tail(msg: str) -> None:
+    log(f"[tail] {msg}")
+
+
+def csv_module_ratings(path):
+    """A ratings CSV parsed row by row with the csv module, as the JAX
+    package's Python `load_ratings` does: the yardstick of its loader's
+    "~10-20x the Python csv module"."""
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.reader(f))[1:]
+    u, m = np.empty(len(rows), np.int32), np.empty(len(rows), np.int32)
+    r, t = np.empty(len(rows), np.float32), np.empty(len(rows), np.int64)
+    for i, row in enumerate(rows):
+        u[i], m[i], r[i], t[i] = int(row[0]), int(row[1]), float(row[2]), int(row[3])
+    return u, m, r, t
+
+
+def native_checks(synthetic):
+    """(a) the C++ loader built and read by every caller, each equal to the
+    Python parse; (b) the parses timed on phase 6's synthetic events."""
+    import numpy as np
+
+    from sparrowrecsys_torch import native
+    from sparrowrecsys_torch.data import run as data_run
+    from sparrowrecsys_torch.data.dataset import load_samples, load_samples_csv
+    from sparrowrecsys_torch.data.movielens import load_ratings, write_ratings_csv
+    from sparrowrecsys_torch.native import loader
+    from sparrowrecsys_torch.serving import catalog
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("no host C++ compiler: the native loader did not build")
+    tail(f"native library {os.path.basename(loader.library_path())} ready in "
+         f"{time.perf_counter() - t0:.3f} s (build {loader.build_seconds} s, "
+         f"{loader.compiler()} {' '.join(loader.CXX_FLAGS)})")
+    data = os.path.join(REPO, "data")
+
+    def natively(what, fn):
+        native.reset_counts()
+        out = fn()
+        if native.counts()["native"] <= 0 or native.counts()["python"]:
+            raise AssertionError(f"{what}: parse counts {native.counts()}")
+        return out
+
+    golden = os.path.join(data, "goldenTestSamples.csv")
+    got = natively("load_samples", lambda: load_samples(golden))
+    want = load_samples_csv(golden)
+    bad = tables_differ(got, want)
+    if bad or len(got) != 22440:
+        raise AssertionError(f"load_samples differs from load_samples_csv in {bad}")
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        outs = {}
+        for flag in ((), ("--native",)):
+            out = os.path.join(tmp, "native" if flag else "python")
+            argv = ["--data-root", data, "--out-dir", out, *flag]
+            if flag:
+                natively("data.run --native", lambda: data_run.main(argv))
+            else:
+                data_run.main(argv)
+            outs[bool(flag)] = []
+            for name in ("trainingSamples.csv", "testSamples.csv"):
+                with open(os.path.join(out, name), "rb") as f:
+                    outs[bool(flag)].append(f.read())
+        if outs[True] != outs[False]:
+            raise AssertionError("data.run --native wrote other bytes than without it")
+        files = [os.path.join(data, f) for f in ("movies.csv", "links.csv", "ratings.csv")]
+        dm = natively("DataManager", lambda: catalog.DataManager().load_data(*files, None, None))
+        real, catalog.load_ratings_native = catalog.load_ratings_native, load_ratings
+        try:
+            ref = catalog.DataManager().load_data(*files, None, None)
+        finally:
+            catalog.load_ratings_native = real
+        if (list(dm.movies) != list(ref.movies) or list(dm.users) != list(ref.users)
+                or any([r.to_json() for r in dm.users[u].ratings]
+                       != [r.to_json() for r in ref.users[u].ratings] for u in ref.users)
+                or any(dm.movies[k].to_json() != m.to_json() for k, m in ref.movies.items())):
+            raise AssertionError("DataManager over the native parse differs from the Python parse")
+        tail(f"native parse used and equal to the Python parse: load_samples ({len(got)} rows), "
+             f"data.run --native (CSVs byte-equal), DataManager ({len(dm.movies)} movies, "
+             f"{len(dm.users)} users)")
+
+        path = os.path.join(tmp, "ratings_1m.csv")
+        write_ratings_csv(synthetic["ratings"], path)
+        csv_bytes = os.path.getsize(path)
+        times = {}
+        for name, fn in (("native", native.load_ratings_native), ("numpy", load_ratings),
+                         ("csv_module", csv_module_ratings)):
+            t0 = time.perf_counter()
+            parsed = fn(path)
+            times[name] = time.perf_counter() - t0
+            cols = (parsed if isinstance(parsed, tuple) else
+                    (parsed.user_ids, parsed.movie_ids, parsed.ratings, parsed.timestamps))
+            src = synthetic["ratings"]
+            for a, b in zip(cols, (src.user_ids, src.movie_ids, src.ratings, src.timestamps)):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name} parse of the 1,000,000 events differs")
+    tail(f"ratings parse of {len(synthetic['ratings'])} events ({csv_bytes} bytes of CSV), "
+         f"s: {json.dumps(times)}; native is {times['csv_module'] / times['native']:.1f}x the "
+         f"csv module and {times['numpy'] / times['native']:.1f}x numpy's loadtxt "
+         f"(the JAX loader's claim: ~10-20x the csv module)")
+    return times
+
+
+def seq_signal_check(device: str = "cuda"):
+    """(c) `tools.seq_signal` on the card against `seq_signal.json`'s
+    ordering; returns the DIN kernels' launches."""
+    from sparrowrecsys_torch.tools import seq_signal
+
+    args = seq_signal.parser().parse_args(SEQ_SIGNAL_ARGV)
+    reset_counts()
+    t0 = time.perf_counter()
+    doc = seq_signal.run(args, log=tail, device=device)
+    counts = read_counts()
+    res = doc["results"]["sequence"]
+    oracle = res["oracle_roc_auc"]
+    din, deepfm = (res["models"][m]["mean"] for m in ("din", "deepfm"))
+    tail(f"seq_signal sequence ({args.n} train rows, {args.epochs} epochs, {args.seeds} seed, "
+         f"{time.perf_counter() - t0:.1f} s): oracle {oracle:.4f}, DIN {din:.4f}, DeepFM "
+         f"{deepfm:.4f} (seq_signal.json, the TPU run at 4,000,000 rows x 20 epochs x 3 "
+         f"seeds: 0.932, 0.774, 0.508); DIN kernels' launches {counts['din_attention']} "
+         f"forward, {counts['din_attention_bwd']} backward")
+    if not (oracle > din and din - deepfm >= SEQ_DIN_MARGIN and deepfm < SEQ_DEEPFM_CEILING):
+        raise AssertionError(f"seq_signal ordering missed: oracle {oracle}, DIN {din}, "
+                             f"DeepFM {deepfm} (want oracle > DIN >= DeepFM + "
+                             f"{SEQ_DIN_MARGIN}, DeepFM < {SEQ_DEEPFM_CEILING})")
+    if counts["din_attention"] <= 0 or counts["din_attention_bwd"] <= 0:
+        raise AssertionError(f"seq_signal's DIN fits launched {counts}")
+    return counts
+
+
+def mfu_rows(device: str = "cuda"):
+    """(d) `tools.mfu_zoo` at its widths: one row a model; returns the
+    kernels' launches over the timed steps."""
+    from sparrowrecsys_torch.tools import mfu_zoo
+
+    args = mfu_zoo.parser().parse_args(MFU_ARGV)
+    rows = mfu_zoo.run(args, emit=lambda row: tail(f"mfu {json.dumps(row)}"), device=device)
+    return {k: sum(r["launches"].get(k, 0) for r in rows) for k in counters()}
+
+
+def tail_phase(synthetic, device: str = "cuda"):
+    """Phase 10: the last of the JAX package. Returns the six kernels'
+    launches under it."""
+    t0 = time.perf_counter()
+    native_checks(synthetic)
+    t_native = time.perf_counter() - t0
+    seq_counts = seq_signal_check(device)
+    t_seq = time.perf_counter() - t0 - t_native
+    mfu_counts = mfu_rows(device)
+    tail(f"s: native {t_native:.1f}, seq_signal {t_seq:.1f}, mfu_zoo "
+         f"{time.perf_counter() - t0 - t_native - t_seq:.1f}")
+    return {k: seq_counts[k] + mfu_counts[k] for k in counters()}
+
+
 def main() -> int:
     # The cuBLAS workspace that phase 6's deterministic fits ask for, set
     # before any CUDA work: on sm_90 it is PyTorch's default size (8
@@ -2877,12 +2441,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
-    try:
-        from sparrowrecsys_torch.ops import kernels
-    except ImportError:
+    if kernel_bench is None:
         print("chip_smoke: sparrowrecsys_torch is not beside this script", file=sys.stderr)
         return 2
+    from sparrowrecsys_torch.ops import kernels
 
     t_start = time.perf_counter()
     # 1. device
@@ -2903,28 +2465,8 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     # 3. kernels against their plain versions
-    fm_rows = [
-        check_fm_cross((WAVE_ROWS, 5, 64), torch.float32, 200),
-        check_fm_cross((262144, 5, 128), torch.float32, 50),
-        check_fm_cross((262144, 5, 128), torch.bfloat16, 50),
-    ]
-    din_rows = [
-        check_din_attention(WAVE_ROWS, 5, 10, 32, 200),
-        check_din_attention(65536, 64, 128, 32, 10),
-    ]
-    fm_bwd_rows = [
-        check_fm_cross_bwd((TRAIN_BATCH, 5, 64), torch.float32, 100),
-        check_fm_cross_bwd((262144, 5, 128), torch.float32, 20),
-        check_fm_cross_bwd((262144, 5, 128), torch.bfloat16, 20),
-    ]
-    din_bwd_rows = [
-        check_din_attention_bwd(TRAIN_BATCH, 5, 10, 32, 20),
-        check_din_attention_bwd(65536, 64, 128, 32, 3),
-        # D=128, H=64: the shape whose block the first backward could not fit.
-        check_din_attention_bwd(65536, 5, 128, 64, 10),
-    ]
-    row_rows = rows_cases(100, 20)
-    host_path()
+    bench = kernel_bench.run(emit=lambda name, row: log(f"[kernels] {name} {json.dumps(row)}"))
+    log(f"[kernels] host path, us per call: {json.dumps(kernel_bench.host_path())}")
     torch.cuda.empty_cache()
 
     phase_s = {"kernels": time.perf_counter() - t_start}
@@ -2964,22 +2506,28 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_counts = mesh_phase()
     phase_s["mesh"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # 10. the last of the JAX package
+    t0 = time.perf_counter()
+    tail_counts = tail_phase(synthetic)
+    phase_s["tail"] = time.perf_counter() - t0
     log(f"[time] phases in s: {json.dumps(phase_s)}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     trained = {k: sum(c[k] for c in train_counts.values()) for k in counters()}
     counts = dict(trained, fm_cross=serving_counts["fm_cross"],
                   din_attention=serving_counts["din_attention"])
-    counts = {k: v + offline_counts[k] + rest_counts[k] + mesh_counts[k]
+    counts = {k: v + offline_counts[k] + rest_counts[k] + mesh_counts[k] + tail_counts[k]
               for k, v in counts.items()}
 
-    # 10. summary
+    # 11. summary
     def entry(name, route, source, replaces, rows):
         main_row = rows[0]
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "launches_training": trained[name],
             "launches_offline": offline_counts[name], "launches_rest": rest_counts[name],
-            "launches_mesh": mesh_counts[name],
+            "launches_mesh": mesh_counts[name], "launches_tail": tail_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2990,17 +2538,17 @@ def main() -> int:
 
     summary = {"kernels": [
         entry("fm_cross", "cuda", "sparrowrecsys_torch/csrc/fm_cross.cu",
-              "sparrowrecsys_tpu/ops/fm.py:41", fm_rows),
+              "sparrowrecsys_tpu/ops/fm.py:41", bench["fm_cross"]),
         entry("din_attention", "cuda", "sparrowrecsys_torch/csrc/din_attention.cu",
-              "sparrowrecsys_tpu/ops/attention.py:73", din_rows),
+              "sparrowrecsys_tpu/ops/attention.py:73", bench["din_attention"]),
         entry("fm_cross_bwd", "cuda", "sparrowrecsys_torch/csrc/fm_cross.cu",
-              "sparrowrecsys_tpu/ops/fm.py:62", fm_bwd_rows),
+              "sparrowrecsys_tpu/ops/fm.py:62", bench["fm_cross_bwd"]),
         entry("din_attention_bwd", "cuda", "sparrowrecsys_torch/csrc/din_attention.cu",
-              "sparrowrecsys_tpu/ops/attention.py:119", din_bwd_rows),
+              "sparrowrecsys_tpu/ops/attention.py:119", bench["din_attention_bwd"]),
         entry("rows_gather", "cuda", "sparrowrecsys_torch/csrc/rowio.cu",
-              "sparrowrecsys_tpu/ops/rowio.py:103", row_rows["rows_gather"]),
+              "sparrowrecsys_tpu/ops/rowio.py:103", bench["rows_gather"]),
         entry("rows_write", "cuda", "sparrowrecsys_torch/csrc/rowio.cu",
-              "sparrowrecsys_tpu/ops/rowio.py:172", row_rows["rows_write"]),
+              "sparrowrecsys_tpu/ops/rowio.py:172", bench["rows_write"]),
     ]}
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -47,12 +47,18 @@ def _parse_float(s: str) -> float:
 
 
 def load_samples(path: str) -> SampleTable:
-    """Parse a reference-format 27-column sample CSV into a SampleTable
-    (genre strings -> vocab indices with -1 OOV/missing; history '' -> 0).
+    """A reference-format 27-column sample CSV as a SampleTable, through
+    the C++ loader (`native.load_samples_native`, column-equal to
+    `load_samples_csv`; the Python parse where no compiler is there)."""
+    from sparrowrecsys_torch.native import load_samples_native
 
-    The copy of `load_samples_csv`; the JAX package's `load_samples` runs
-    the same parse in its C++ loader, column-equal (tests/test_native.py).
-    Truncated rows are skipped, as both loaders do."""
+    return load_samples_native(path)
+
+
+def load_samples_csv(path: str) -> SampleTable:
+    """Parse a reference-format 27-column sample CSV into a SampleTable
+    (genre strings -> vocab indices with -1 OOV/missing; history '' -> 0)
+    in Python. Truncated rows are skipped, as the C++ loader does."""
     with open(path, newline="", encoding="utf-8") as f:
         reader = csv.reader(f)
         header = next(reader)

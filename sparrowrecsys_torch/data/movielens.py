@@ -1,9 +1,10 @@
 """MovieLens CSV loaders and writers: copies of
 `sparrowrecsys_tpu/data/movielens.py`.
 
-`load_ratings` is a numpy parser (the JAX package's `--native` C++
-loader is not ported). `write_ratings_csv` writes what the JAX package
-writes without pandas (its pandas branch writes "3.0" for a rating of 3;
+`load_ratings` is a numpy parser; `native.load_ratings_native` reads the
+same file through the C++ loader (the catalog and `data.run --native`
+do). `write_ratings_csv` writes what the JAX package writes without
+pandas (its pandas branch writes "3.0" for a rating of 3;
 `data/ratings.csv` has "3").
 """
 

@@ -2,13 +2,14 @@
 (`FeatureEngForRecModel.main`, `FeatureEngForRecModel.scala:299-342`).
 
     python -m sparrowrecsys_torch.data.run [--out-dir DIR]
-        [--sample-fraction 1.0] [--by-time] [--export-features]
+        [--sample-fraction 1.0] [--by-time] [--export-features] [--native]
 
 ratings.csv + movies.csv -> label, movie features and windowed user
 features (all 27 columns) -> split -> trainingSamples.csv and
 testSamples.csv in the reference format; `--export-features` also writes
-the `mf:`/`uf:` feature-store hand-off, feature_store.json. numpy on the
-host: the job runs no model and needs no card.
+the `mf:`/`uf:` feature-store hand-off, feature_store.json; `--native`
+reads ratings.csv through the C++ loader (`native/`). numpy on the host:
+the job runs no model and needs no card.
 """
 
 from __future__ import annotations
@@ -27,12 +28,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--export-features", action="store_true")
     ap.add_argument("--native", action="store_true",
-                    help="the C++ ratings loader: not ported (raises)")
+                    help="read the ratings through the C++ loader")
     args = ap.parse_args(argv)
-    if args.native:
-        raise NotImplementedError(
-            "--native (the repo-root C++ ratings loader) is not ported; it is queued in "
-            "ROADMAP.md. The numpy loader reads the same file.")
 
     from sparrowrecsys_torch.config import GENRE_VOCAB, DataConfig
     from sparrowrecsys_torch.data.feature_pipeline import build_samples, split_samples
@@ -41,7 +38,12 @@ def main(argv=None) -> None:
     data = DataConfig() if args.data_root is None else DataConfig(data_root=args.data_root)
     out_dir = args.out_dir or data.data_root
     catalog = load_movies(data.path(data.movies_csv))
-    ratings = load_ratings(data.path(data.ratings_csv))
+    if args.native:
+        from sparrowrecsys_torch.native import load_ratings_native
+
+        ratings = load_ratings_native(data.path(data.ratings_csv))
+    else:
+        ratings = load_ratings(data.path(data.ratings_csv))
     print(f"{len(catalog)} movies, {len(ratings)} ratings")
 
     table = build_samples(ratings, catalog)

@@ -1,8 +1,9 @@
 """Synthetic datasets with a planted signal: copies of
 `sparrowrecsys_tpu/data/synthetic.py::synthetic_ratings` (:22-60, rating
 events at MovieLens-20M's user and movie counts for the feature job),
-`synthetic_ctr_dataset` (:63) and `synthetic_sequence_ctr_dataset` (:95)
-with the helpers they need.
+`synthetic_ctr_dataset` (:63), `synthetic_sequence_ctr_dataset` (:95),
+`sequence_ctr_with_oracle` (:144) and `drift_ctr_with_oracle` (:164), with
+their core `_sequence_ctr` (:290) and the helpers they need.
 
 numpy only: the same arguments give the same rows in both packages.
 """
@@ -105,6 +106,90 @@ def synthetic_sequence_ctr_dataset(
     and the history is a Markov walk under the same planted kernel. Every
     other column is independent noise, so DIN's target attention can find
     the signal and models without a history-candidate channel cannot."""
+    feats, labels, _ = _sequence_ctr(n, movie_vocab, user_vocab, seed, t, recency, gain,
+                                     compat_dim, markov_tau)
+    return EncodedDataset(feats, labels)
+
+
+def sequence_ctr_with_oracle(
+    n: int,
+    movie_vocab: int = 1001,
+    user_vocab: int = 30001,
+    seed: int = 0,
+    t: int = 5,
+    recency: float = 0.6,
+    gain: float = 3.0,
+    compat_dim: int = 8,
+    markov_tau: float = 1.5,
+):
+    """(EncodedDataset, oracle logits [n] float32): the rows of
+    `synthetic_sequence_ctr_dataset` and the planted logit each label was
+    drawn from, the Bayes-optimal score for an AUC ceiling."""
+    feats, labels, logit = _sequence_ctr(n, movie_vocab, user_vocab, seed, t, recency, gain,
+                                         compat_dim, markov_tau)
+    return EncodedDataset(feats, labels), logit
+
+
+def drift_ctr_with_oracle(
+    n: int,
+    movie_vocab: int = 1001,
+    user_vocab: int = 30001,
+    seed: int = 0,
+    t: int = 5,
+    drift_rho: float = 0.9,
+    tau: float = 2.0,
+    gain: float = 4.0,
+    compat_dim: int = 8,
+    chunk: int = 262_144,
+):
+    """(EncodedDataset, oracle logits): interest drift. Each row's latent
+    taste walks as an AR(1) process over the history (taste_{k+1} =
+    rho * taste_k + sqrt(1 - rho^2) * eps), each history item is a
+    Gumbel-max draw over tau * E @ taste at its step, and the label
+    depends on the final taste alone, sigmoid(gain * taste . B[cand] /
+    sqrt(d)). History most-recent-first, as the sample columns are. The
+    [c, V] draws run in chunks of `chunk` rows."""
+    rng = np.random.default_rng(seed)
+    e = rng.normal(size=(movie_vocab, compat_dim)).astype(np.float32)
+    b = rng.normal(size=(movie_vocab, compat_dim)).astype(np.float32)
+    hist = np.empty((n, t), np.int32)
+    taste = rng.normal(size=(n, compat_dim)).astype(np.float32)
+    sig = np.sqrt(1.0 - drift_rho ** 2).astype(np.float32)
+    # Oldest -> newest: column t-1 first.
+    for step in range(t - 1, -1, -1):
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            logits = tau * (taste[lo:hi] @ e[1:].T)     # [c, V-1]
+            g = rng.gumbel(size=logits.shape).astype(np.float32)
+            hist[lo:hi, step] = 1 + np.argmax(logits + g, axis=1)
+        if step > 0:
+            taste = drift_rho * taste + sig * rng.normal(size=taste.shape).astype(np.float32)
+    cand = rng.integers(1, movie_vocab, n).astype(np.int32)
+    logit = gain * np.einsum("nd,nd->n", taste, b[cand]) / np.sqrt(compat_dim)
+    labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    return EncodedDataset(_noise_columns(rng, cand, hist, user_vocab), labels), \
+        logit.astype(np.float32)
+
+
+def _noise_columns(rng, cand, hist, user_vocab) -> Dict[str, np.ndarray]:
+    """The sample columns around a planted candidate and history: userId,
+    the genres and the numerics are independent noise, drawn in the JAX
+    package's order."""
+    feats: Dict[str, np.ndarray] = {
+        "movieId": cand,
+        "userId": rng.integers(1, user_vocab, len(cand)).astype(np.int32),
+    }
+    for k in range(hist.shape[1]):
+        feats[f"userRatedMovie{k + 1}"] = hist[:, k]
+    for c in _GENRE_COLS:
+        feats[c] = rng.integers(-1, 19, len(cand)).astype(np.int32)
+    for c in _NUMERIC_COLS:
+        feats[c] = rng.normal(size=len(cand)).astype(np.float32)
+    return feats
+
+
+def _sequence_ctr(n, movie_vocab, user_vocab, seed, t, recency, gain, compat_dim, markov_tau):
+    """(features, labels, oracle logits) of the sequence generator."""
     rng = np.random.default_rng(seed)
     a = rng.normal(size=(movie_vocab, compat_dim)).astype(np.float32)
     b = rng.normal(size=(movie_vocab, compat_dim)).astype(np.float32)
@@ -117,18 +202,7 @@ def synthetic_sequence_ctr_dataset(
     compat = np.einsum("ntd,nd->nt", a[hist], b[cand]) / np.sqrt(compat_dim)
     logit = gain * (compat @ w) / float(np.linalg.norm(w))
     labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
-
-    feats: Dict[str, np.ndarray] = {
-        "movieId": cand,
-        "userId": rng.integers(1, user_vocab, n).astype(np.int32),
-    }
-    for k in range(t):
-        feats[f"userRatedMovie{k + 1}"] = hist[:, k]
-    for c in _GENRE_COLS:
-        feats[c] = rng.integers(-1, 19, n).astype(np.int32)
-    for c in _NUMERIC_COLS:
-        feats[c] = rng.normal(size=n).astype(np.float32)
-    return EncodedDataset(feats, labels)
+    return _noise_columns(rng, cand, hist, user_vocab), labels, logit.astype(np.float32)
 
 
 def _markov_history(rng, a, b, n, t, tau, compat_dim):

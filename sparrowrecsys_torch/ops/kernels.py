@@ -150,6 +150,17 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def launch_counters() -> dict:
+    """The six kernels' wrappers by name; each carries `launches`, the
+    kernel launches since it was last set to 0."""
+    from sparrowrecsys_torch.ops import attention, fm, rowio
+
+    return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
+            "din_attention": attention.din_attention,
+            "din_attention_bwd": attention.din_attention_bwd,
+            "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write}
+
+
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:

@@ -153,6 +153,19 @@ class FeatureAssembler:
             feats[c] = np.zeros(n, np.int32)
         return feats
 
+    def example_features(self, n: int = 2,
+                         extra_int_cols: Sequence[str] = ()) -> Dict[str, np.ndarray]:
+        """A zero-valued feature dict of the assembler's columns (and
+        `extra_int_cols`), with their dtypes, for `n` rows."""
+        feats = {"movieId": np.zeros(n, np.int32), "userId": np.zeros(n, np.int32)}
+        for c in USER_INT_COLS + USER_GENRE_COLS + MOVIE_GENRE_COLS:
+            feats[c] = np.zeros(n, np.int32)
+        for c in USER_FLOAT_COLS + MOVIE_FLOAT_COLS:
+            feats[c] = np.zeros(n, np.float32)
+        for c in extra_int_cols:
+            feats[c] = np.zeros(n, np.int32)
+        return feats
+
     def movie_block(self, movie_ids: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
         """([n, 3] int32 genre indices, [n, 4] float32 numerics), cached
         until the store or the candidates' ratings change."""

@@ -1,9 +1,11 @@
 """In-memory catalog: the port of `sparrowrecsys_tpu/serving/catalog.py`.
 
 `DataManager` loads movies (title, year, genres, genre index), links,
-ratings (incremental per-movie averages and top ratings, per-user
-stats) and the movie/user embedding files, and serves the query API of
-the endpoints. The embeddings are also kept as aligned matrices so the
+ratings (through the C++ loader, `native.load_ratings_native`;
+incremental per-movie averages and top ratings, per-user stats) and the
+movie/user embedding files, attaches the feature store's `mf:`/`uf:`
+hashes (`load_feature_store`), and serves the query API of the
+endpoints. The embeddings are also kept as aligned matrices so the
 rankers score a whole candidate set with one matmul.
 
 The entities' JSON, including the `{"rating": {...}}` wrapper, is
@@ -18,8 +20,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from sparrowrecsys_torch.data.movielens import load_links, load_movies, load_ratings
+from sparrowrecsys_torch.data.movielens import load_links, load_movies
 from sparrowrecsys_torch.embedding.artifacts import load_embeddings_csv
+from sparrowrecsys_torch.native import load_ratings_native
 
 TOP_RATING_SIZE = 10
 
@@ -56,6 +59,8 @@ class Movie:
     average_rating: float = 0.0
     top_ratings: List[Rating] = dataclasses.field(default_factory=list)
     emb: Optional[np.ndarray] = None
+    #: the `mf:` hash `DataManager.load_feature_store` attaches
+    movie_features: Optional[Dict[str, str]] = None
     #: serialized `to_json()`, cached until the next add_rating.
     _json_cache: Optional[str] = dataclasses.field(
         default=None, repr=False, compare=False
@@ -107,7 +112,8 @@ class User:
     lowest_rating: float = 5.0
     rating_count: int = 0
     emb: Optional[np.ndarray] = None
-    #: the `uf:` features the nearline stream writes (`latestMovieId`,
+    #: the `uf:` hash `DataManager.load_feature_store` attaches, or the
+    #: features the nearline stream writes (`latestMovieId`,
     #: `latestMovieRating`), which the assembler's real-time shift reads
     user_features: Optional[Dict[str, str]] = None
 
@@ -188,7 +194,7 @@ class DataManager:
                 m.imdb_id, m.tmdb_id = imdb, tmdb
 
     def _load_ratings(self, path: str) -> None:
-        ratings = load_ratings(path)
+        ratings = load_ratings_native(path)
         for i in range(len(ratings)):
             uid, mid = int(ratings.user_ids[i]), int(ratings.movie_ids[i])
             r = Rating(mid, uid, float(ratings.ratings[i]), int(ratings.timestamps[i]))
@@ -239,6 +245,36 @@ class DataManager:
 
     def get_user_by_id(self, user_id: int) -> Optional[User]:
         return self.users.get(user_id)
+
+    def load_feature_store(self, store, load_movie: bool = True,
+                           load_user: bool = True) -> None:
+        """Attach each movie's `mf:<id>` and each user's `uf:<id>` hash from
+        `store` (a `FeatureStore` or the path of its saved file) as
+        `movie_features` / `user_features`."""
+        from sparrowrecsys_torch.serving.feature_store import (
+            MOVIE_FEATURE_PREFIX,
+            USER_FEATURE_PREFIX,
+            FeatureStore,
+        )
+
+        if isinstance(store, str):
+            store = FeatureStore.load(store)
+        if load_movie:
+            n = 0
+            for mid, movie in self.movies.items():
+                feats = store.hgetall(f"{MOVIE_FEATURE_PREFIX}{mid}")
+                if feats is not None:
+                    movie.movie_features = feats
+                    n += 1
+            print(f"Loading movie features completed. {n} movie features.")
+        if load_user:
+            n = 0
+            for uid, user in self.users.items():
+                feats = store.hgetall(f"{USER_FEATURE_PREFIX}{uid}")
+                if feats is not None:
+                    user.user_features = feats
+                    n += 1
+            print(f"Loading user features completed. {n} user features.")
 
     def movie_emb_row(self, movie_id: int) -> int:
         return self._movie_emb_row.get(movie_id, -1)

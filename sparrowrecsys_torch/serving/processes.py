@@ -2,7 +2,9 @@
 
 similar movies: candidates are the union of each genre's top 100 by
 rating, the movie itself removed; ranked by embedding cosine ("emb") or
-by 0.7 * genre overlap + 0.3 * rating / 5.
+by 0.7 * genre overlap + 0.3 * rating / 5. No endpoint calls the two
+other candidate sets (`multiple_retrieval_candidates`,
+`retrieval_candidates_by_embedding`), as in the JAX package.
 
 rec for you: the top-800 movies by rating; ranked by a zoo scorer
 (`?model=<name>`: a full-feature model, or NeuralCF over the ids at
@@ -59,6 +61,32 @@ class SimilarMovieProcess:
                 continue
         seen.pop(movie.movie_id, None)
         return list(seen.values())
+
+    def multiple_retrieval_candidates(self, movie: Movie) -> List[Movie]:
+        """Each of the movie's genres' top 20 by rating, then the top 100 by
+        rating and by release year; the movie itself removed."""
+        seen: Dict[int, Movie] = {}
+        for genre in set(movie.genres):
+            try:
+                for c in self.dm.get_movies_by_genre(genre, 20, "rating"):
+                    seen[c.movie_id] = c
+            except KeyError:
+                continue
+        for c in self.dm.get_movies(100, "rating"):
+            seen[c.movie_id] = c
+        for c in self.dm.get_movies(100, "releaseYear"):
+            seen[c.movie_id] = c
+        seen.pop(movie.movie_id, None)
+        return list(seen.values())
+
+    def retrieval_candidates_by_embedding(self, movie: Movie, size: int) -> Optional[List[Movie]]:
+        """The top 10,000 movies by rating ranked by cosine to the movie's
+        embedding, most similar first (the Java sorts ascending; the JAX
+        package sorts descending), cut to `size`; None without one."""
+        if movie is None or movie.emb is None:
+            return None
+        candidates = self.dm.get_movies(10000, "rating")
+        return rank_by_embedding(movie.emb, candidates, self.dm, self.device)[:size]
 
     def ranker(self, movie: Movie, candidates: List[Movie], model: str) -> List[Movie]:
         if model == "emb":

@@ -40,13 +40,9 @@ LOSS_TOL, AUC_TOL, PARAM_TOL = 2e-3, 5e-3, 1e-3
 
 def kernel_launches() -> Dict[str, int]:
     """The six kernels' launch counts (each wrapper counts its launches)."""
-    from sparrowrecsys_torch.ops import attention, fm, rowio
+    from sparrowrecsys_torch.ops.kernels import launch_counters
 
-    fns = {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
-           "din_attention": attention.din_attention,
-           "din_attention_bwd": attention.din_attention_bwd,
-           "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write}
-    return {k: fn.launches for k, fn in fns.items()}
+    return {k: fn.launches for k, fn in launch_counters().items()}
 
 
 def case_data(case: Dict[str, Any]):

@@ -107,6 +107,26 @@ class TrainResult:
     opt_state: Any = None
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _leaves(t)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def hard_sync(tree) -> None:
+    """Wait for the work that produces `tree` (a tensor, or a dict, list
+    or tuple of them, nested): one element of its first non-empty leaf is
+    read back to the host, which completes only after the work queued
+    before it on the leaf's stream. JAX: `training/loop.py::hard_sync`."""
+    leaf = next((t for t in _leaves(tree) if t.numel()), None)
+    if leaf is not None:
+        leaf.reshape(-1)[:1].cpu()
+
+
 def _default_loss(logits, labels, mask):
     """Masked mean binary cross-entropy on logits (optax's
     `sigmoid_binary_cross_entropy`); returns (loss, summed masked BCE)."""

@@ -5,7 +5,8 @@ and copies when CUDA is there) and writes it into `log_dir` as a Chrome
 trace (`<host>_<pid>.<time>.pt.trace.json`, which chrome://tracing,
 Perfetto and TensorBoard open). `StepTimer` gives EMA-smoothed per-step
 wall times and examples/s from the host clock alone; `mark_sync` waits
-for the card at an epoch's end for an exact reading.
+for the card at an epoch's end for an exact reading
+(`training.loop.hard_sync`).
 """
 
 from __future__ import annotations
@@ -33,17 +34,6 @@ def trace(log_dir: Optional[str] = None) -> Iterator[None]:
         yield
 
 
-def hard_sync(x=None) -> None:
-    """Wait for the work that produces `x` (a tensor, or a dict or sequence
-    of tensors): a CUDA synchronize of each card they live on."""
-    if isinstance(x, dict):
-        x = list(x.values())
-    tensors = x if isinstance(x, (list, tuple)) else [x]
-    for dev in {t.device for t in tensors if isinstance(t, torch.Tensor)}:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-
 class StepTimer:
     """EMA per-step timing. Steps are launched asynchronously, so per-step
     host deltas measure the launch pace; `mark_sync(x)` waits for `x` for
@@ -68,6 +58,8 @@ class StepTimer:
         self.steps += 1
 
     def mark_sync(self, x) -> None:
+        from sparrowrecsys_torch.training.loop import hard_sync
+
         hard_sync(x)
         self._last = time.perf_counter()
 

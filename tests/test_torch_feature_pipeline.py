@@ -8,6 +8,7 @@ objects."""
 
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -99,9 +100,19 @@ def test_feature_job_reproduces_the_bundled_samples_and_the_jax_store(tmp_path, 
         assert store.hgetall(key) == got["hashes"][key]
 
 
-def test_feature_job_native_loader_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        data_run.main(["--native"])
+def test_feature_job_native_loader_raises(tmp_path):
+    """`--native` reads ratings.csv through the C++ loader: on a data root
+    without the file it raises, and on the bundled one it writes the job's
+    bytes."""
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    shutil.copy(os.path.join(DATA, "movies.csv"), empty / "movies.csv")
+    with pytest.raises(FileNotFoundError):
+        data_run.main(["--native", "--data-root", str(empty), "--out-dir", str(tmp_path)])
+    data_run.main(["--native", "--data-root", DATA, "--out-dir", str(tmp_path)])
+    for name in ("trainingSamples.csv", "testSamples.csv"):
+        with open(os.path.join(DATA, name), "rb") as f:
+            assert (tmp_path / name).read_bytes() == f.read(), name
 
 
 def test_ratings_csv_round_trips_byte_for_byte(tmp_path):

@@ -31,7 +31,9 @@ def test_import_every_submodule_pulls_in_no_jax():
     assert int(n) >= 20, out.stdout
     for module in ("nearline.stream", "utils.profiling", "data.device_pipeline",
                    "serving.sidecar", "parallel", "parallel.mesh", "parallel.scaling",
-                   "parallel.collectives", "tools.dist_bringup", "tools.dryrun_multichip"):
+                   "parallel.collectives", "tools.dist_bringup", "tools.dryrun_multichip",
+                   "native", "native.loader", "tools.seq_signal", "tools.kernel_bench",
+                   "tools.mfu_zoo"):
         assert f"sparrowrecsys_torch.{module}" in names.split(","), module
     assert bad == "[]", out.stdout
 

@@ -39,7 +39,7 @@ from sparrowrecsys_torch.training.row_optim import (
     init_fused_row_adam,
 )
 
-from chip_smoke import fm_bwd_tolerance, fm_cross_bwd_bf16_sum
+from sparrowrecsys_torch.tools.kernel_bench import fm_bwd_tolerance, fm_cross_bwd_bf16_sum
 
 
 @pytest.fixture
