@@ -9,8 +9,12 @@ steps whose embedding row is all zero (`attention.py:48`, not "id != 0")
 
 - `din_attention_plain`: the plain PyTorch version of `_unit`.
 - `din_attention_bwd_steps_plain`: the plain version of the per-step
-  backward kernel: dh, dc, dapre, the product operands hx = [h, h*c] and
-  dsum = sum_t dapre_t, and the small weight gradients.
+  backward kernel: dh, dc, dapre, the product operands hx = [h, h*c]
+  (h*c alone where D > H) and dsum = sum_t dapre_t, and the small weight
+  gradients.
+- `tf32_split_product_plain`: the kernels' tensor-core product in plain
+  PyTorch, each operand split into two TF32 parts and three products
+  summed in float32.
 - `din_attention_bwd_plain`: the gradients of all seven inputs, written
   out by hand (recompute, then back through the folded weight and
   unfold), not through autograd: the reference for the backward.
@@ -25,8 +29,8 @@ steps whose embedding row is all zero (`attention.py:48`, not "id != 0")
   the three [D, H] weight gradients are matrix products on them
   (`_din_weight_grads`), as XLA computes them for `jax.vjp(_unit)`.
 
-The kernels take every (B, T, D, H): `plan` picks how (chunks of H,
-rows per block, what sits in shared memory). Both take float32; bfloat16
+The kernels take every (B, T, D, H): `plan` picks how (steps a chunk,
+tiles of H, slices of D, whether the weights stay in shared memory). Both take float32; bfloat16
 history and candidate are cast up first, as the JAX dispatch does for
 its kernel (`attention.py:157-159`), so the result is float32 (and the
 cast passes the gradient back in bf16).
@@ -42,18 +46,14 @@ import torch
 
 from sparrowrecsys_torch.ops import kernels
 
-#: Chunk widths of H the kernels are instantiated for (`HC` in the .cu).
-KERNEL_CHUNKS = (8, 16, 32, 64)
-#: Steps a block aims to hold (whole rows), and the most threads it runs.
-ROW_THREADS = 128
-MAX_THREADS = 256
-#: A block's shared-memory budgets, in bytes: the folded weight of one
-#: chunk (else it is read through L1), the staged tile (else read from
-#: global memory) and the forward's step weights (else a scratch). At
-#: most about 215 KB in all, under the H100's 227 KB.
-WEIGHT_BYTES = 80 * 1024
-STAGE_BYTES = 32 * 1024
-STEP_WEIGHT_BYTES = 32 * 1024
+#: A block's shared memory on the H100 (227 KB), in bytes.
+SHARED_BYTES = 232_448
+#: Warps a block may run, each owning 16 steps of a chunk: M = 16 * warps.
+WARPS = (8, 4, 2, 1)
+#: Histories of at most this many steps take the candidate's term
+#: c @ (wc-wa) into the tile's product, as a third segment of K, per step;
+#: longer ones compute it once per batch row (T times fewer operations).
+CT_STEPS = 8
 #: The weight-gradient products' long dimension (B*T for hx^T dapre, B
 #: for c^T dsum) is cut into this many slices, multiplied as one batched
 #: product and summed in slice order: faster on the H100 at the training
@@ -62,52 +62,148 @@ STEP_WEIGHT_BYTES = 32 * 1024
 PRODUCT_SLICES = 512
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, on the bits, as `cvt.rna.tf32.f32` rounds: the low 13 bits
+    are rounded into bit 13 and cleared. Infinities and NaNs pass."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def tf32_split_product_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] as the kernels' tensor-core tiles compute it in
+    float32: each operand x split into hi = tf32(x) and lo = tf32(x - hi),
+    and the three products lo·hi + hi·lo + hi·hi (each exact in float32,
+    as a TF32 product is) summed in float32. lo·lo, below float32's last
+    bit, is dropped."""
+    a, b = a.float(), b.float()
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 class Plan(NamedTuple):
-    """How the kernels cover one (T, D, H): H in `chunks` chunks of `hc`
-    columns (the last padded with zero weights), `rows` batch rows per
-    block of `threads`. The kernels stage the rows' history, candidates
-    and (backward) output gradients in shared memory (`staged`); the
-    folded weight is read through L1 from a [3D, chunks * hc] copy the
-    wrapper makes (`weights_global`); the forward's step weights go to a
-    [B*T] scratch (`step_weights_global`)."""
+    """How a kernel covers one (T, D, H). A chunk is M = 16 * `warps`
+    steps of `rows` whole batch rows (T <= M), or M steps of one row;
+    each warp takes 16 of them through the products. H runs in `chunks`
+    chunks of `nt` tiles of 8 columns (zero weights past H); D in slices
+    of `slice_steps` * 8 columns, `slices` of them. The split weights of
+    a slice sit in shared memory (for the whole launch where D is one
+    slice, else loaded per slice); `wc_shared`: wc - wa too, for the
+    candidate's terms; `ct`: the candidate's term in the product instead
+    (`CT_STEPS`). `shared_bytes`: the block's shared memory, as the .cu
+    lays it out (`shared_floats`)."""
 
-    hc: int
-    chunks: int
+    warps: int
     rows: int
-    threads: int
-    staged: bool
-    weights_global: bool
-    step_weights_global: bool
+    nt: int
+    chunks: int
+    slice_steps: int
+    slices: int
+    wc_shared: bool
+    ct: bool
+    shared_bytes: int
+
+
+def _odd4(w: int) -> int:
+    """The staged row stride for rows of w floats: a multiple of 4 whose
+    quarter is odd, so the 8 rows a fragment reads fall in distinct bank
+    groups."""
+    s = -(-w // 4) * 4
+    return s if (s // 4) % 2 else s + 4
+
+
+def _r4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _n_tiles(h: int):
+    """(nt, chunks, np): tiles of 8 columns a chunk, chunks, padded H."""
+    n8 = max(1, -(-h // 8))
+    nt = min(8, 1 << (n8 - 1).bit_length())
+    chunks = -(-n8 // nt)
+    return nt, chunks, chunks * nt * 8
+
+
+def shared_floats(t: int, d: int, h: int, warps: int, slice_steps: int, wc_shared: bool,
+                  backward: bool, ct: bool = False) -> int:
+    """A block's shared memory in floats, region by region as
+    `make_dims` in csrc/din_attention.cu lays it out: the weight slab
+    (the slice's k-steps of [wa+wb; wd], and of wc - wa where `ct`, as B
+    fragments, 16 bytes a lane a tile: hi and lo of two values; the
+    backward reads its transposed operand from the same slab), alpha, w2
+    and b1, wc - wa [D, np + 8] where `wc_shared`, the candidate term
+    [rows, np] unless `ct`, the backward's dsum
+    [rows, np], the step weights [M], the pre-activations [M, ps]
+    (backward; forward over several slices), the backward's per-warp
+    small sums, and two ring slots of the staged history [M, hs],
+    candidates and (backward) output gradients [rows, hs]."""
+    m = 16 * warps
+    rows = max(1, m // t)
+    nt, chunks, np_ = _n_tiles(h)
+    kst = -(-d // 8)
+    slices = -(-kst // slice_steps)
+    hs = _odd4(min(d, 8 * slice_steps))
+    ps = np_ if (np_ // 8) % 2 else np_ + 8
+    floats = (3 if ct else 2) * slice_steps * chunks * nt * 128 + _r4(3 * np_) + _r4(m)
+    if not ct:
+        floats += _r4(rows * np_)
+    if wc_shared:
+        floats += _r4(d * (np_ + 8))
+    if backward or slices > 1:
+        floats += _r4(m * ps)
+    if backward:
+        floats += _r4(rows * np_) + _r4(warps * (3 * np_ + 1))
+    return floats + 2 * (_r4(m * hs + 4) + _r4(rows * hs + 4) * (2 if backward else 1))
+
+
+@functools.lru_cache(maxsize=2048)
+def plan(t: int, d: int, h: int, backward: bool = False) -> Plan:
+    """The forward's (or the backward's) plan for T >= 1 steps of width
+    D >= 1 and H >= 0: D in as few slices as fit (one: the weights stay in
+    shared memory for the launch), wc - wa in shared memory where it fits
+    (the candidate's terms read it row after row), then the most warps.
+    Up to `CT_STEPS` steps in one slice, the candidate's term goes into the
+    product instead, where that fits as many warps."""
+    nt, chunks, _ = _n_tiles(h)
+    kst = -(-d // 8)
+    widths, s = [kst], kst
+    while s > 1:
+        s = -(-s // 2)
+        widths.append(s)
+
+    def make(warps, sks, wc, ct):
+        f = 4 * shared_floats(t, d, h, warps, sks, wc, backward, ct)
+        if f <= SHARED_BYTES:
+            return Plan(warps, max(1, 16 * warps // t), nt, chunks, sks, -(-kst // sks), wc, ct, f)
+        return None
+
+    for sks in widths:
+        for wc in ((True, False) if sks == kst else (False,)):
+            best = next(filter(None, (make(w, sks, wc, False) for w in WARPS)), None)
+            if best is not None:
+                if t <= CT_STEPS and best.slices == 1:
+                    return make(best.warps, sks, False, True) or best
+                return best
+    raise ValueError(f"din_attention: no launch plan fits T={t}, D={d}, H={h}")
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(t: int, d: int, h: int) -> Plan:
-    """The kernels' plan for T >= 1 steps of width D >= 1 and H >= 0: the
-    narrowest chunk that covers H (64 above it), halved while its folded
-    weight [3D, hc + 4] (rows padded for the banks) passes
-    `WEIGHT_BYTES`; whole rows of up to `ROW_THREADS` steps a block (one
-    row of a longer history); the tile staged where its T + 2 rows of D|1
-    words a batch row, and the backward's row of D|1 words a thread, fit
-    `STAGE_BYTES`."""
-    hc = next((w for w in KERNEL_CHUNKS if w >= h), KERNEL_CHUNKS[-1])
-    while hc > KERNEL_CHUNKS[0] and 3 * d * (hc + 4) * 4 > WEIGHT_BYTES:
-        hc //= 2
-    weights_global = 3 * d * (hc + 4) * 4 > WEIGHT_BYTES
-    rows = max(1, ROW_THREADS // t)
-    threads = min(MAX_THREADS, -(-rows * t // 32) * 32)
-    staged = not weights_global and (rows * (t + 2) + threads) * (d | 1) * 4 <= STAGE_BYTES
-    return Plan(hc, max(1, -(-h // hc)), rows, threads, staged, weights_global,
-                rows * t * 4 > STEP_WEIGHT_BYTES)
-
-
-@functools.lru_cache(maxsize=1024)
-def _scalars(b: int, t: int, d: int, h: int, dev: int):
+def _scalars(b: int, t: int, d: int, h: int, dev: int, backward: bool = False):
     """The entry points' int64 scalars for one launch shape (`enum Scalar`
     in the .cu): B, T, D, H, the plan, device. Cached on the shape, which
     a trainer or a server repeats call after call."""
-    p = plan(t, d, h)
-    return (ctypes.c_int64 * 12)(b, t, d, h, p.hc, p.chunks, p.rows, p.threads, p.staged,
-                                 p.weights_global, p.step_weights_global, dev)
+    p = plan(t, d, h, backward)
+    return (ctypes.c_int64 * 13)(b, t, d, h, p.warps, p.rows, p.nt, p.chunks, p.slice_steps,
+                                 p.wc_shared, p.ct, p.shared_bytes, dev)
+
+
+def hx_alone(d: int, h: int) -> bool:
+    """Whether the backward writes h*c alone [B*T, D] (D > H: the weight
+    products take dk0 from the history itself) rather than
+    hx = [h, h*c] [B*T, 2D] (one product reads dapre once)."""
+    return d > h
 
 
 def _as_f32(hist, cand):
@@ -119,12 +215,6 @@ def _as_f32(hist, cand):
 def _fold(w1: torch.Tensor, d: int) -> torch.Tensor:
     wa, wb, wc, wd = w1[:d], w1[d:2 * d], w1[2 * d:3 * d], w1[3 * d:]
     return torch.cat([wa + wb, wc - wa, wd], dim=0)               # [3D, H]
-
-
-def _folded(w1: torch.Tensor, d: int, p: Plan) -> torch.Tensor:
-    """The folded weight padded to the plan's chunks, [3D, chunks * hc]."""
-    wk = _fold(w1, d)
-    return torch.nn.functional.pad(wk, (0, p.chunks * p.hc - wk.shape[1])).contiguous()
 
 
 def din_attention_plain(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
@@ -142,8 +232,9 @@ def din_attention_plain(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
 def din_attention_bwd_steps_plain(hist, cand, w1, b1, alpha, w2, b2, g):
     """What the per-step backward kernel writes, for the output gradient
     g [B, D]: dh [B,T,D], dc [B,D], dapre [B*T,H] (the pre-activations'
-    gradient), hx = [h, h*c] [B*T,2D], dsum = sum_t dapre_t [B,H] and
-    [db1 | dalpha | dw2 | db2] (3H+1), all float32."""
+    gradient), hx = [h, h*c] [B*T,2D] (h*c alone [B*T,D] where
+    `hx_alone`), dsum = sum_t dapre_t [B,H] and [db1 | dalpha | dw2 | db2]
+    (3H+1), all float32."""
     hist, cand = _as_f32(hist, cand)
     g = g.float()
     b, t, d = hist.shape
@@ -166,8 +257,9 @@ def din_attention_bwd_steps_plain(hist, cand, w1, b1, alpha, w2, b2, g):
     dc = dsum @ wk[d:2 * d].T + (hist * df2).sum(1)
     small = torch.cat([dpre.sum((0, 1)), torch.where(neg, pre * da, 0.0).sum((0, 1)),
                        (act * dl[..., None]).sum((0, 1)), dl.sum().reshape(1)])
-    hx = torch.cat([hist, hc], dim=-1).reshape(b * t, 2 * d)
-    return dh, dc, dpre.reshape(b * t, -1), hx, dsum, small
+    h = w1.shape[-1]
+    hx = hc if hx_alone(d, h) else torch.cat([hist, hc], dim=-1)
+    return dh, dc, dpre.reshape(b * t, -1), hx.reshape(b * t, -1), dsum, small
 
 
 def din_attention_bwd_plain(hist, cand, w1, b1, alpha, w2, b2, g):
@@ -223,23 +315,28 @@ def _tn(a, b) -> torch.Tensor:
     return out if cut == n else out + a[cut:].T @ b[cut:]
 
 
-def _din_weight_grads(hx, dapre, cand, dsum) -> torch.Tensor:
-    """dw1 [4D, H] from the per-step terms: hx = [h, h*c] [B*T, 2D],
+def _din_weight_grads(hx, dapre, cand, dsum, hist=None) -> torch.Tensor:
+    """dw1 [4D, H] from the per-step terms: hx = [h, h*c] [B*T, 2D] (or
+    h*c alone [B*T, D], `hx_alone`, with the history [B, T, D] as `hist`),
     dapre [B*T, H], cand [B, D] and dsum = sum_t dapre_t [B, H]. The
     gradient of the folded weight [wa+wb; wc-wa; wd] is [dk0; dk1; dk2]
-    with [dk0; dk2] = hx^T dapre and dk1 = c^T dsum (`_tn` each), unfolded
-    to dwa = dk0 - dk1, dwb = dk0, dwc = dk1, dwd = dk2. One product on
-    [h, h*c] reads dapre once: at the training shape (D < H) that is
-    faster on the H100 than h^T dapre and (h*c)^T dapre, for all that the
-    kernel writes a copy of h (`chip_smoke.py` times both). They follow
-    PyTorch's float32 matmul precision, like every other matmul of the
-    model: full float32 unless the caller allows TF32
+    with [dk0; dk2] = hx^T dapre (h^T dapre and (h*c)^T dapre apart where
+    h*c comes alone) and dk1 = c^T dsum (`_tn` each), unfolded to
+    dwa = dk0 - dk1, dwb = dk0, dwc = dk1, dwd = dk2. One product on
+    [h, h*c] reads dapre once: where D < H (the training shape) that is
+    faster on the H100 than two, for all that the kernel writes a copy of
+    h; where D > H the copy costs more (`chip_smoke.py` times both). They
+    follow PyTorch's float32 matmul precision, like every other matmul of
+    the model: full float32 unless the caller allows TF32
     (`torch.backends.cuda.matmul.allow_tf32`)."""
-    d = hx.shape[1] // 2
-    dk02 = _tn(hx, dapre)
+    d = cand.shape[1]
     dk1 = _tn(cand, dsum)
-    dk0 = dk02[:d]
-    return torch.cat([dk0 - dk1, dk0, dk1, dk02[d:]], dim=0)
+    if hx.shape[1] == d:
+        dk0, dk2 = _tn(hist.reshape(-1, d), dapre), _tn(hx, dapre)
+    else:
+        dk02 = _tn(hx, dapre)
+        dk0, dk2 = dk02[:d], dk02[d:]
+    return torch.cat([dk0 - dk1, dk0, dk1, dk2], dim=0)
 
 
 def _check(name, hist, cand, w1, b1, alpha, w2, b2, *more):
@@ -262,23 +359,16 @@ def _check(name, hist, cand, w1, b1, alpha, w2, b2, *more):
     return dev, b, t, d, h
 
 
-def _ptr(x) -> int | None:
-    return None if x is None else x.data_ptr()
-
-
 def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     dev, b, t, d, h = _check("din_attention", hist, cand, w1, b1, alpha, w2, b2)
     if b * t * d == 0:
         return hist.new_zeros((b, d))
     out = hist.new_empty((b, d))
-    p = plan(t, d, h)
-    wfold = _folded(w1, d, p) if p.weights_global else None
-    wt = hist.new_empty(b * t) if p.step_weights_global else None
     lib = kernels.library()
     err = lib.din_attention_f32(
         hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), _ptr(wfold), out.data_ptr(), _ptr(wt),
-        _scalars(b, t, d, h, dev), kernels.stream_of(dev),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), _scalars(b, t, d, h, dev),
+        kernels.stream_of(dev),
     )
     if err:
         kernels.check(lib, err, "din_attention")
@@ -286,8 +376,8 @@ def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     return out
 
 
-#: The backward's grid per (B, T, D, H, device, 16-byte path): the C side
-#: sizes it from the kernel's occupancy, and the wrapper sizes the
+#: The backward's grid per (B, T, D, H, device): the C side sizes it
+#: from the kernel's occupancy, and the wrapper sizes the
 #: [grid * warps, 3H+1] scratch (a row per warp) by it.
 _bwd_grids: dict = {}
 
@@ -295,31 +385,29 @@ _bwd_grids: dict = {}
 def _din_attention_bwd_steps(hist, cand, w1, b1, alpha, w2, b2, g):
     """The per-step backward kernel's outputs (`din_attention_bwd_steps_plain`)."""
     dev, b, t, d, h = _check("din_attention_bwd", hist, cand, w1, b1, alpha, w2, b2, g)
+    hx_width = d if hx_alone(d, h) else 2 * d
     if b * t * d == 0:
         z = hist.new_zeros
-        return (z(hist.shape), z(cand.shape), z((b * t, h)), z((b * t, 2 * d)), z((b, h)),
+        return (z(hist.shape), z(cand.shape), z((b * t, h)), z((b * t, hx_width)), z((b, h)),
                 z(3 * h + 1))
-    p = plan(t, d, h)
-    wfold = _folded(w1, d, p) if p.weights_global else None
-    scalars = _scalars(b, t, d, h, dev)
-    ptrs = (hist.data_ptr(), cand.data_ptr(), g.data_ptr())
+    scalars = _scalars(b, t, d, h, dev, True)
     lib = kernels.library()
-    key = (b, t, d, h, dev, (ptrs[0] | ptrs[1] | ptrs[2]) & 15 == 0)
+    key = (b, t, d, h, dev)
     grid = _bwd_grids.get(key)
     if grid is None:
         got = ctypes.c_int64(0)
-        err = lib.din_attention_bwd_grid(*ptrs, _ptr(wfold), scalars, ctypes.addressof(got))
+        err = lib.din_attention_bwd_grid(scalars, ctypes.addressof(got))
         kernels.check(lib, err, "din_attention_bwd")
         grid = _bwd_grids[key] = got.value
     new = hist.new_empty
     dh, dc, dsum, small = new(hist.shape), new(cand.shape), new((b, h)), new(3 * h + 1)
-    dapre, hx = new((b * t, h)), new((b * t, 2 * d))
-    partial = new((grid * (p.threads // 32), 3 * h + 1))
+    dapre, hx = new((b * t, h)), new((b * t, hx_width))
+    partial = new((grid * plan(t, d, h, True).warps, 3 * h + 1))
     err = lib.din_attention_bwd_f32(
-        ptrs[0], ptrs[1], w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), _ptr(wfold), ptrs[2], dh.data_ptr(), dc.data_ptr(), dapre.data_ptr(),
-        hx.data_ptr(), dsum.data_ptr(), partial.data_ptr(), small.data_ptr(), scalars, grid,
-        kernels.stream_of(dev),
+        hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+        dapre.data_ptr(), hx.data_ptr(), dsum.data_ptr(), partial.data_ptr(), small.data_ptr(),
+        scalars, grid, kernels.stream_of(dev),
     )
     if err:
         kernels.check(lib, err, "din_attention_bwd")
@@ -335,7 +423,7 @@ def din_attention_bwd(hist, cand, w1, b1, alpha, w2, b2, g):
     steps = din_attention_bwd_steps_plain if hist.device.type == "cpu" else _din_attention_bwd_steps
     dh, dc, dapre, hx, dsum, small = steps(hist, cand, w1, b1, alpha, w2, b2, g)
     h = dapre.shape[-1]
-    dw1 = _din_weight_grads(hx, dapre, cand, dsum)
+    dw1 = _din_weight_grads(hx, dapre, cand, dsum, hist)
     return dh, dc, dw1, small[:h], small[h:2 * h], small[2 * h:3 * h, None], small[3 * h:]
 
 

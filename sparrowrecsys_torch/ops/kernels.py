@@ -47,16 +47,14 @@ SIGNATURES = {
     # x, g, dx, B, F, D, device, stream
     "fm_cross_bwd_f32": 8,
     "fm_cross_bwd_bf16": 8,
-    # hist, cand, w1, b1, alpha, w2, b2, folded weight or null, out, step
-    # weight scratch or null, int64 scalars (B, T, D, H, the plan of
-    # ops/attention.py::plan, device), stream
-    "din_attention_f32": 12,
-    # hist, cand, g, folded weight or null, scalars, grid (an int64_t
-    # written back)
-    "din_attention_bwd_grid": 6,
-    # hist, cand, w1, b1, alpha, w2, b2, folded weight or null, g, dh, dc,
-    # dapre, hx, dsum, scratch, small sums, scalars, grid, stream
-    "din_attention_bwd_f32": 19,
+    # hist, cand, w1, b1, alpha, w2, b2, out, int64 scalars (B, T, D, H,
+    # the plan of ops/attention.py::plan, device), stream
+    "din_attention_f32": 10,
+    # the backward's scalars, grid (an int64_t written back)
+    "din_attention_bwd_grid": 2,
+    # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, dapre, hx, dsum,
+    # scratch, small sums, scalars, grid, stream
+    "din_attention_bwd_f32": 18,
     # table, ids, out, int64 scalars (V, U, row bytes, the plan of
     # ops/rowio.py::launch_plan, device), stream
     "rows_gather": 5,

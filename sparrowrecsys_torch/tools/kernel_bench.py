@@ -10,8 +10,9 @@ rows_write) is checked against its plain PyTorch version on the card, at
 the serving or training path's shapes and at the large shapes of
 KERNELS.md, then timed: CUDA-event ms, device ms under torch.profiler,
 the bound (the bytes it must move at HBM_BYTES_PER_S, or its operations
-at F32_FLOPS, whichever is longer, counted on this call's data), the
-plain version's ms and, where one PyTorch call computes the same function
+at the rate its arithmetic can reach, whichever is longer, counted on this
+call's data: F32_FLOPS, and TC_F32_FLOPS for the DIN kernels, whose
+products run on the tensor cores), the plain version's ms and, where one PyTorch call computes the same function
 (`index_select`, `index_copy_`), its ms and device ms. Each timed call
 reads inputs that are not in L2 (`cycling`, `row_sets`). The row kernels
 run at the six row calls the DeepFMv2 trainer makes a step, kernel and
@@ -41,6 +42,10 @@ from typing import Callable, Dict, List, Optional
 #: outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: The DIN kernels' float32-accurate products on the tensor cores: 495
+#: TFLOP/s of TF32, three TF32 products (hi*hi, hi*lo, lo*hi) a float32
+#: product. Their bound prices the operations at this rate.
+TC_F32_FLOPS = 495e12 / 3
 #: The H100's L2 (50 MB). A timed kernel cycles through copies of its
 #: inputs that span four times this, so each call reads from HBM, as the
 #: bound assumes, and not from the copy the call before left in L2.
@@ -135,10 +140,11 @@ def cycling(inputs, nbytes: int):
     return itertools.cycle(sets).__next__
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
     """(ms, "bytes" or "operations"): the longer of moving `nbytes` at
-    HBM_BYTES_PER_S and doing `flops` at F32_FLOPS."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    HBM_BYTES_PER_S and doing `flops` at `rate` (F32_FLOPS; TC_F32_FLOPS
+    for the DIN kernels)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -335,7 +341,7 @@ def check_din_attention(b, t, d, h, iters):
     tol_ok = torch.allclose(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
     if not tol_ok:
         raise AssertionError(f"din_attention {(b, t, d, h)}: max err {err}")
-    t_bound, by = bound(*din_attention_cost(b, t, d, h, *live_counts(hist)))
+    t_bound, by = bound(*din_attention_cost(b, t, d, h, *live_counts(hist)), TC_F32_FLOPS)
     nxt = cycling((hist, cand), (b * t * d + b * d) * 4)
     weights = args[2:]
     row = {"shape": [b, t, d, h], "dtype": "float32", "max_abs_err": err,
@@ -474,7 +480,7 @@ def check_din_attention_bwd(b, t, d, h, iters):
     del got, ref, again
     live_steps, live_rows = live_counts(hist)
     nbytes, flops = din_attention_bwd_cost(b, t, d, h, live_steps, live_rows)
-    t_bound, by = bound(nbytes, flops)
+    t_bound, by = bound(nbytes, flops, TC_F32_FLOPS)
     nxt = cycling((hist, cand, go), (b * t * d + 2 * b * d) * 4)
 
     def call(fn):
@@ -498,16 +504,27 @@ def check_din_attention_bwd(b, t, d, h, iters):
            "plain_device_ms": device_ms(lambda: call(din_attention_bwd_plain), iters)}
     row["products_share"] = 1 - row["kernel_device_ms"] / row["device_ms"]
     # The weight-gradient products alone on this call's per-step terms:
-    # the wrapper's sliced products, one torch.mm each, and the wrapper's
-    # slicing on h and h*c apart (the products if the kernel wrote h*c
-    # alone: dapre read twice in place of the copy of h).
+    # the wrapper's sliced products, one torch.mm each, and the products
+    # in the other layout: on h and h*c apart (dapre read twice) where
+    # the kernel wrote [h, h*c], on [h, h*c] (a copy of h) where it wrote
+    # h*c alone.
     _, _, dapre, hx, dsum, _ = _din_attention_bwd_steps(hist, cand, *weights, go)
-    flat, hc = hist.view(-1, d), hx[:, d:].contiguous()
-    row["products_device_ms"] = device_ms(lambda: _din_weight_grads(hx, dapre, cand, dsum), iters)
-    row["mm_products_device_ms"] = device_ms(
-        lambda: (torch.mm(hx.T, dapre), torch.mm(cand.T, dsum)), iters)
-    row["split_products_device_ms"] = device_ms(
-        lambda: (_tn(flat, dapre), _tn(hc, dapre), _tn(cand, dsum)), iters)
+    flat = hist.view(-1, d)
+    row["products_device_ms"] = device_ms(
+        lambda: _din_weight_grads(hx, dapre, cand, dsum, hist), iters)
+    if hx.shape[1] == d:
+        row["mm_products_device_ms"] = device_ms(
+            lambda: (torch.mm(flat.T, dapre), torch.mm(hx.T, dapre), torch.mm(cand.T, dsum)),
+            iters)
+        both = torch.cat([flat, hx], 1)
+        row["other_layout_products_device_ms"] = device_ms(
+            lambda: (_tn(both, dapre), _tn(cand, dsum)), iters)
+    else:
+        hc = hx[:, d:].contiguous()
+        row["mm_products_device_ms"] = device_ms(
+            lambda: (torch.mm(hx.T, dapre), torch.mm(cand.T, dsum)), iters)
+        row["other_layout_products_device_ms"] = device_ms(
+            lambda: (_tn(flat, dapre), _tn(hc, dapre), _tn(cand, dsum)), iters)
     return row
 
 
@@ -688,6 +705,8 @@ def _cases() -> Dict[str, List[Callable[[], dict]]]:
         ],
         "din_attention": [
             lambda: check_din_attention(WAVE_ROWS, 5, 10, 32, 200),
+            # The trainer's forward at its batch.
+            lambda: check_din_attention(TRAIN_BATCH, 5, 10, 32, 100),
             lambda: check_din_attention(65536, 64, 128, 32, 10),
         ],
         "fm_cross_bwd": [

@@ -18,10 +18,10 @@ import pytest
 import torch
 
 from sparrowrecsys_torch.ops.attention import (
-    KERNEL_CHUNKS,
-    MAX_THREADS,
+    CT_STEPS,
     PRODUCT_SLICES,
-    WEIGHT_BYTES,
+    SHARED_BYTES,
+    WARPS,
     _din_weight_grads,
     _tn,
     din_attention,
@@ -29,7 +29,9 @@ from sparrowrecsys_torch.ops.attention import (
     din_attention_bwd_plain,
     din_attention_bwd_steps_plain,
     din_attention_plain,
+    hx_alone,
     plan,
+    shared_floats,
 )
 from sparrowrecsys_tpu.ops import attention as jax_attention
 
@@ -89,8 +91,9 @@ def test_steps_and_weight_products_match_the_jax_vjp_of_unit(b, t, d, h):
     ref = vjp(jnp.asarray(g))
     targs = [torch.from_numpy(a) for a in args]
     dh, dc, dapre, hx, dsum, small = din_attention_bwd_steps_plain(*targs, torch.from_numpy(g))
-    assert dapre.shape == (b * t, h) and hx.shape == (b * t, 2 * d) and dsum.shape == (b, h)
-    dw1 = _din_weight_grads(hx, dapre, targs[1], dsum)
+    hx_width = d if hx_alone(d, h) else 2 * d
+    assert dapre.shape == (b * t, h) and hx.shape == (b * t, hx_width) and dsum.shape == (b, h)
+    dw1 = _din_weight_grads(hx, dapre, targs[1], dsum, targs[0])
     got = (dh, dc, dw1, small[:h], small[h:2 * h], small[2 * h:3 * h, None], small[3 * h:])
     _assert_grads([x.numpy() for x in got], ref)
     # The wrapper on the CPU is that composition, and the reference agrees.
@@ -98,6 +101,24 @@ def test_steps_and_weight_products_match_the_jax_vjp_of_unit(b, t, d, h):
     for x, y in zip(wrapped, got):
         assert torch.equal(x, y)
     _assert_grads([x.numpy() for x in din_attention_bwd_plain(*targs, torch.from_numpy(g))], ref)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(6, 5, 12, 8), (4, 7, 20, 3), (3, 4, 5, 1)])
+def test_hc_alone_where_d_exceeds_h_matches_the_jax_vjp_of_unit(b, t, d, h):
+    """Where D > H the per-step terms carry h*c alone [B*T, D], and the
+    weight products take dk0 = h^T dapre from the history itself; the
+    seven gradients still equal `jax.vjp(_unit)`'s."""
+    assert hx_alone(d, h)
+    args, g = _inputs(b, t, d, h, seed=3)
+    _, vjp = jax.vjp(jax_attention._unit, *[jnp.asarray(a) for a in args])
+    ref = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a) for a in args]
+    dh, dc, dapre, hc, dsum, small = din_attention_bwd_steps_plain(*targs, torch.from_numpy(g))
+    assert hc.shape == (b * t, d)
+    assert torch.equal(hc, (targs[0] * targs[1][:, None, :]).reshape(b * t, d))
+    dw1 = _din_weight_grads(hc, dapre, targs[1], dsum, targs[0])
+    got = (dh, dc, dw1, small[:h], small[h:2 * h], small[2 * h:3 * h, None], small[3 * h:])
+    _assert_grads([x.numpy() for x in got], ref)
 
 
 @pytest.mark.parametrize("n", [0, 7, PRODUCT_SLICES, 2 * PRODUCT_SLICES + 176])
@@ -127,7 +148,7 @@ def test_forward_with_zero_padded_weights_equals_xla_on_the_unpadded_ones(h):
     args, _ = _inputs(b, t, d, h, seed=2)
     ref = np.asarray(jax_attention.din_attention_xla(*[jnp.asarray(a) for a in args]))
     p = plan(t, d, h)
-    width = p.chunks * p.hc
+    width = p.chunks * p.nt * 8
     assert width > h
     targs = [torch.from_numpy(a) for a in args]
     padded = _pad_hidden(*targs[2:6], width)
@@ -136,43 +157,45 @@ def test_forward_with_zero_padded_weights_equals_xla_on_the_unpadded_ones(h):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
-def _shared_bytes(p, t, d):
-    """A block's shared memory on this plan, forward and backward, as
-    `fwd_shared_bytes` and `bwd_shared_bytes` of the .cu count it."""
-    weights = 0 if p.weights_global else 3 * d * (p.hc + 4)
-    common = weights + 3 * p.hc + p.rows * (p.hc + 1)
-    fwd = common + (0 if p.step_weights_global else p.rows * t)
-    fwd += p.rows * (t + 1) * (d | 1) if p.staged else 0
-    bwd = common + p.rows * (p.hc + 1) + p.threads * ((1 if p.staged else 2) * (p.hc + 1) + 1)
-    bwd += (p.rows * (t + 2) + p.threads) * (d | 1) if p.staged else 0
-    return 4 * fwd, 4 * bwd
-
-
 @pytest.mark.parametrize("t,d,h", [
     (5, 10, 32), (64, 128, 32), (5, 128, 64), (256, 128, 32), (300, 16, 32), (5, 10, 24),
     (5, 10, 100), (5, 512, 64), (3, 700, 12), (1, 1, 1), (20000, 4, 8), (7, 3000, 200),
     (1, 4096, 0), (200, 10, 64), (1, 10, 64),
 ])
 def test_plan_covers_every_shape_within_shared_memory(t, d, h):
-    p = plan(t, d, h)
-    assert p.hc in KERNEL_CHUNKS
-    assert p.chunks >= 1 and p.chunks * p.hc >= h and (p.chunks - 1) * p.hc < max(h, 1)
-    natural = min(w for w in KERNEL_CHUNKS if w >= min(h, 64))
-    assert p.hc == natural or 3 * d * (2 * p.hc + 4) * 4 > WEIGHT_BYTES
-    assert 32 <= p.threads <= MAX_THREADS and p.threads % 32 == 0
-    assert p.rows >= 1 and (p.rows == 1 or p.rows * t <= p.threads)
-    assert not (p.staged and p.weights_global)
-    assert p.weights_global == (3 * d * (8 + 4) * 4 > WEIGHT_BYTES)
-    fwd, bwd = _shared_bytes(p, t, d)
-    assert fwd <= H100_BLOCK_SHARED and bwd <= H100_BLOCK_SHARED
+    """Forward and backward: H in chunks of nt tiles of 8 columns that
+    cover it (the last chunk reaching past H), a chunk of 16 * warps steps
+    of whole rows (one row's where T exceeds it), D in slices that cover
+    it, wc - wa in shared memory only over one slice, the candidate's term
+    in the product only over one slice of a short history, and the block's
+    shared memory, as the .cu lays it out, within the H100's 227 KB."""
+    kst = -(-d // 8)
+    for backward in (False, True):
+        p = plan(t, d, h, backward)
+        assert p.warps in WARPS and p.nt in (1, 2, 4, 8)
+        assert p.chunks * p.nt * 8 >= h and (p.chunks - 1) * p.nt * 8 < max(h, 1)
+        assert p.nt == 8 or p.chunks == 1
+        m = 16 * p.warps
+        assert p.rows == max(1, m // t) and (p.rows == 1 or p.rows * t <= m)
+        assert p.slices == -(-kst // p.slice_steps) and (p.slices - 1) * p.slice_steps < kst
+        assert not (p.wc_shared and p.slices > 1)
+        assert not (p.ct and (p.wc_shared or p.slices > 1 or t > CT_STEPS))
+        assert p.shared_bytes == 4 * shared_floats(t, d, h, p.warps, p.slice_steps, p.wc_shared,
+                                                   backward, p.ct)
+        assert p.shared_bytes <= SHARED_BYTES == 232_448
 
 
 def test_plan_at_the_paths_shapes():
-    """Serving and training (T=5, D=10, H=32): one chunk of 32, 25 rows a
-    block, the tile staged; [65536, 64, 128] reads its history from
-    global memory; D=128, H=64 and D=512 split H into chunks."""
-    assert plan(5, 10, 32) == (32, 1, 25, 128, True, False, False)
-    assert plan(64, 128, 32)[:5] == (32, 1, 2, 128, False)
-    assert plan(5, 128, 64)[:2] == (32, 2)
-    assert plan(5, 512, 64)[:2] == (8, 8)
-    assert plan(4, 700, 12)[5]
+    """Serving and training (T=5, D=10, H=32): 8 warps, 25 rows (125 of
+    128 steps) a chunk, one chunk of 4 tiles of H, D in one slice, the
+    candidate's term in the product. [65536, 64, 128]: the forward 8 warps
+    of 2 rows; the backward (its pre-activations and dsum beside the
+    forward's regions) 4 warps of one row, to keep wc - wa in shared
+    memory; the candidate's term once per row. D=128 with H=64 takes 2
+    warps (the term in the product would fit one), D=512 slices of D."""
+    assert plan(5, 10, 32) == (8, 25, 4, 1, 2, 1, False, True, 27936)
+    assert plan(5, 10, 32, True) == (8, 25, 4, 1, 2, 1, False, True, 57152)
+    assert plan(64, 128, 32) == (8, 2, 4, 1, 16, 1, True, False, 224512)
+    assert plan(64, 128, 32, True) == (4, 1, 4, 1, 16, 1, True, False, 168496)
+    assert plan(5, 128, 64)[:8] == (2, 6, 8, 1, 16, 1, True, False)
+    assert plan(5, 512, 64)[:8] == (2, 6, 8, 1, 16, 4, False, False)

@@ -52,12 +52,16 @@ def cuda_device():
 
 #: DIN shapes of the card tests: the serving shape, small odd ones, the
 #: shapes the first kernels refused (H=64 at D=128, T=256 at D=128, T=300,
-#: H=24, H=100, D=512), the folded weight read through L1 (D=700) and the
-#: step weights outside shared memory (T=9000).
+#: H=24, H=100, D=512), D staged in slices (D=512, D=700), a long history
+#: of one row a chunk (T=9000), chunks whose step count is not a multiple
+#: of the tile's 16 (T=1, 7 and 300 at B=3) and D=1.
 DIN_SHAPES = [
     (8192, 5, 10, 32), (8, 8, 4, 8), (33, 130, 12, 16), (5, 1, 3, 64), (300, 64, 128, 32),
     (64, 5, 128, 64), (16, 256, 128, 32), (8, 300, 16, 32), (4, 5, 10, 24), (4, 5, 10, 100),
-    (2, 5, 512, 64), (3, 4, 700, 12), (2, 9000, 4, 8),
+    (2, 5, 512, 64), (3, 4, 700, 12), (2, 9000, 4, 8), (3, 1, 10, 32), (3, 7, 10, 32),
+    (3, 300, 10, 32), (64, 5, 1, 32),
+    # D in slices with D % 4 != 0: the staging's element-by-element mode.
+    (3, 5, 1001, 32),
 ]
 
 

@@ -164,12 +164,18 @@ def test_din_costs_follow_the_live_steps():
     assert nbytes == (b * t * d + 2 * b * d + 4 * d * h + 3 * h + 1) * 4
     assert flops == 2 * (28_672 * (2 * d * h + h) + 8_172 * d * h)
     assert _ms((nbytes, flops)) == (pytest.approx(0.00069, abs=5e-6), "bytes")
-    # The backward: 2 (live (6DH + 4H) + live_rows 3DH), set by operations
-    # at the training shape (0.0155 ms in the kernel table, its own data).
+    tc = kb.bound(nbytes, flops, kb.TC_F32_FLOPS)
+    assert tc == (pytest.approx(0.00069, abs=5e-6), "bytes")
+    # The backward: 2 (live (6DH + 4H) + live_rows 3DH). Its operations at
+    # the tensor cores' float32 rate (three TF32 products a product), the
+    # rate the DIN kernels' bound takes, fall below its bytes at the
+    # training shape (0.0102 ms in the kernel table, its own data); at the
+    # float32 rate outside the tensor cores they would set it.
     live, rows = 229_376, 65_370
     nbytes, flops = kb.din_attention_bwd_cost(65536, 5, 10, 32, live, rows)
     assert flops == 2 * (live * (6 * 10 * 32 + 4 * 32) + rows * 3 * 10 * 32)
     assert _ms((nbytes, flops))[1] == "operations"
+    assert kb.bound(nbytes, flops, kb.TC_F32_FLOPS) == (pytest.approx(0.01018, abs=5e-5), "bytes")
     assert kb.din_attention_cost(b, t, d, h, 0, 0)[1] == 0
 
 
