@@ -1,0 +1,14 @@
+"""Device time a traced step of the kernels, copies and sets launched
+inside the program's `embedding.backward` spans (the autograd backward
+of every `ops/embedding.py::embed_lookup`), in ms;
+`backward_ms.train.py` says how a launch is matched to a span."""
+
+import os
+import runpy
+
+SPANS = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "backward_ms.train.py"))
+
+
+def read(ctx):
+    return SPANS["launched_ms"](ctx.device_trace, "embedding.backward")

@@ -29,6 +29,8 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from sparrowrecsys_torch.utils.profiling import backward_span
+
 
 class RowShard(NamedTuple):
     """A row block of a table split over `plan`'s model ranks: rank m holds
@@ -114,19 +116,24 @@ def _lookup_from(table: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tenso
     return embed_lookup(table, torch.where(ids >= lo, ids, -1)) if lo else embed_lookup(table, ids)
 
 
+def _dense_lookup(table: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tensor:
+    v = table.shape[0]
+    out = F.embedding(ids.clamp(0, v - 1).long(), table)
+    valid = (ids >= lo) & (ids < v)
+    return torch.where(valid.unsqueeze(-1), out, out.new_zeros(()))
+
+
 def embed_lookup(
     table: torch.Tensor, ids: torch.Tensor, *, mask_zero: bool = False
 ) -> torch.Tensor:
-    """table [V, D], integer ids [...] -> [..., D]."""
+    """table [V, D], integer ids [...] -> [..., D]. Its backward is the
+    profiler range `embedding.backward` while a profiler records."""
     shard = row_shard_of(table)
     if shard is not None:
-        return sharded_lookup(table, torch.where(ids >= 1, ids, -1) if mask_zero else ids,
-                              shard.plan, rows=shard.rows)
-    v = table.shape[0]
-    out = F.embedding(ids.clamp(0, v - 1).long(), table)
-    lo = 1 if mask_zero else 0
-    valid = (ids >= lo) & (ids < v)
-    return torch.where(valid.unsqueeze(-1), out, out.new_zeros(()))
+        return backward_span("embedding.backward", sharded_lookup, table,
+                             torch.where(ids >= 1, ids, -1) if mask_zero else ids,
+                             shard.plan, rows=shard.rows)
+    return backward_span("embedding.backward", _dense_lookup, table, ids, 1 if mask_zero else 0)
 
 
 def packed_multi_lookup(tables, ids, lo=None) -> tuple:

@@ -94,6 +94,7 @@ from sparrowrecsys_torch.training.row_optim import (
     init_fused_row_adam,
 )
 from sparrowrecsys_torch.utils.device import resolve_device
+from sparrowrecsys_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -405,14 +406,16 @@ class Trainer:
         shard, the loss is normalised by the mask count over `data`, and
         the gradients come out summed over `data`."""
         leaves = self._diff_leaves(params, opt_state)
-        with row_sharded(self._row_blocks(leaves)):
-            loss, logits, loss_sum = self._loss(leaves, feats, labels, mask, generator)
-        if self.plan is not None:
-            count = self.plan.all_reduce(mask.sum(), self.plan.data_axis)
-            loss = loss_sum / count.clamp_min(1.0)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        if self.plan is not None:
-            grads = self._sum_over_data(grads)
+        with span("trainer.forward"):
+            with row_sharded(self._row_blocks(leaves)):
+                loss, logits, loss_sum = self._loss(leaves, feats, labels, mask, generator)
+            if self.plan is not None:
+                count = self.plan.all_reduce(mask.sum(), self.plan.data_axis)
+                loss = loss_sum / count.clamp_min(1.0)
+        with span("trainer.backward"):
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            if self.plan is not None:
+                grads = self._sum_over_data(grads)
         return logits.detach(), loss.detach(), loss_sum.detach(), grads
 
     @torch.no_grad()
@@ -421,39 +424,41 @@ class Trainer:
         place) and the lazy row-Adam on each sparse table's touched rows
         (in place in its buffer). Returns (params, opt_state)."""
         cfg = self.config
-        if self.sparse_tables:
-            # The placeholders' (empty) gradients ride along, in the
-            # order the dense state was initialised with.
-            gdense = {k: v if k in self._table_keys else grads[k] for k, v in params.items()}
-            updates, dstate = self.tx.update(gdense, opt_state["dense"], params)
-            rows = {}
-            for mod, cols in self.sparse_tables.items():
-                ids = torch.cat([feats[c].reshape(-1).to(torch.int32) for c in cols])
-                if self.plan is not None:
-                    # The global batch's ids; a shard's own rows by local id.
-                    ids = self.plan.all_gather(ids, self.plan.data_axis)
-                    if self._sharded(f"{mod}.table"):
-                        ids = ids - self.plan.model_index * opt_state["rows"][mod].buf.shape[0]
-                rows[mod] = fused_row_adam_update(
-                    opt_state["rows"][mod], grads[f"{mod}.table"], ids,
-                    learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
-                    b2=cfg.adam_b2, eps=cfg.adam_eps,
-                )
-            opt_state = {"dense": dstate, "rows": rows}
-        else:
-            updates, opt_state = self.tx.update(grads, opt_state, params)
-        for k, v in params.items():
-            if k not in self._table_keys:
-                v.add_(updates[k])
-        return params, opt_state
+        with span("trainer.optimizer"):
+            if self.sparse_tables:
+                # The placeholders' (empty) gradients ride along, in the
+                # order the dense state was initialised with.
+                gdense = {k: v if k in self._table_keys else grads[k] for k, v in params.items()}
+                updates, dstate = self.tx.update(gdense, opt_state["dense"], params)
+                rows = {}
+                for mod, cols in self.sparse_tables.items():
+                    ids = torch.cat([feats[c].reshape(-1).to(torch.int32) for c in cols])
+                    if self.plan is not None:
+                        # The global batch's ids; a shard's own rows by local id.
+                        ids = self.plan.all_gather(ids, self.plan.data_axis)
+                        if self._sharded(f"{mod}.table"):
+                            ids = ids - self.plan.model_index * opt_state["rows"][mod].buf.shape[0]
+                    rows[mod] = fused_row_adam_update(
+                        opt_state["rows"][mod], grads[f"{mod}.table"], ids,
+                        learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
+                        b2=cfg.adam_b2, eps=cfg.adam_eps,
+                    )
+                opt_state = {"dense": dstate, "rows": rows}
+            else:
+                updates, opt_state = self.tx.update(grads, opt_state, params)
+            for k, v in params.items():
+                if k not in self._table_keys:
+                    v.add_(updates[k])
+            return params, opt_state
 
     def _train_step(self, params, opt_state, mstate, feats, labels, mask, generator=None):
         """One step; updates `params` (and sparse buffers) in place and
         returns (params, opt_state, mstate)."""
-        logits, _, loss_sum, grads = self.loss_and_grads(
-            params, opt_state, feats, labels, mask, generator)
-        params, opt_state = self.apply_grads(params, opt_state, grads, feats)
-        mstate = M.update_metrics(mstate, torch.sigmoid(logits), labels, loss_sum, mask)
+        with span("trainer.step"):
+            logits, _, loss_sum, grads = self.loss_and_grads(
+                params, opt_state, feats, labels, mask, generator)
+            params, opt_state = self.apply_grads(params, opt_state, grads, feats)
+            mstate = M.update_metrics(mstate, torch.sigmoid(logits), labels, loss_sum, mask)
         return params, opt_state, mstate
 
     # ------------------------------------------------------------------
