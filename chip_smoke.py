@@ -6,9 +6,9 @@
 Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compile the hand-written kernels (csrc/*.cu) with nvcc.
-3. kernels (`tools.kernel_bench.run`): each of the six kernels (fm_cross
-   and din_attention with their backwards, rows_gather, rows_write)
-   against its plain PyTorch version on the card, at the serving or
+3. kernels (`tools.kernel_bench.run`): each of the seven kernels (fm_cross
+   and din_attention with their backwards, rows_gather, rows_write,
+   embedding_bwd) against its plain PyTorch version on the card, at the serving or
    training path's shapes and at the large shapes of KERNELS.md, timed
    (CUDA events, and torch.profiler for the device's own time) on inputs
    that are not in L2, beside its bound and, for the row kernels, the
@@ -2242,7 +2242,7 @@ def mesh_ranks(cases, singles, device="cuda"):
 
 
 def mesh_phase(device: str = "cuda"):
-    """Phase 9: the multi-device plane on the one card. Returns the six
+    """Phase 9: the multi-device plane on the one card. Returns the seven
     kernels' launches under it; each must be at least 1."""
     cases = {name: mesh_case(name, device) for name in MESH_MODELS}
     local_counts, singles = one_rank_plans(cases, device)
@@ -2415,7 +2415,7 @@ def mfu_rows(device: str = "cuda"):
 
 
 def tail_phase(synthetic, device: str = "cuda"):
-    """Phase 10: the last of the JAX package. Returns the six kernels'
+    """Phase 10: the last of the JAX package. Returns the seven kernels'
     launches under it."""
     t0 = time.perf_counter()
     native_checks(synthetic)
@@ -2549,6 +2549,9 @@ def main() -> int:
               "sparrowrecsys_tpu/ops/rowio.py:103", bench["rows_gather"]),
         entry("rows_write", "cuda", "sparrowrecsys_torch/csrc/rowio.cu",
               "sparrowrecsys_tpu/ops/rowio.py:172", bench["rows_write"]),
+        entry("embedding_bwd", "cuda", "sparrowrecsys_torch/csrc/embedding_bwd.cu",
+              "none (an XLA one-hot product, sparrowrecsys_tpu/ops/embedding.py:59)",
+              bench["embedding_bwd"]),
     ]}
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -60,6 +60,9 @@ SIGNATURES = {
     "rows_gather": 5,
     # table, ids, rows, int64 scalars, stream
     "rows_write": 5,
+    # g, ids, partials, grad, int64 scalars (N, V, D, lo, id bytes, the
+    # plan of ops/embedding.py::bwd_plan, device), stream
+    "embedding_bwd_f32": 6,
 }
 
 _lock = threading.Lock()
@@ -149,14 +152,15 @@ def library() -> ctypes.CDLL:
 
 
 def launch_counters() -> dict:
-    """The six kernels' wrappers by name; each carries `launches`, the
-    kernel launches since it was last set to 0."""
-    from sparrowrecsys_torch.ops import attention, fm, rowio
+    """The seven kernels' wrappers by name; each carries `launches`, the
+    kernel calls since it was last set to 0."""
+    from sparrowrecsys_torch.ops import attention, embedding, fm, rowio
 
     return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
             "din_attention": attention.din_attention,
             "din_attention_bwd": attention.din_attention_bwd,
-            "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write}
+            "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write,
+            "embedding_bwd": embedding.embedding_bwd}
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -1,19 +1,20 @@
-"""Microbenchmarks of the port's six CUDA kernels: the twin of
+"""Microbenchmarks of the port's seven CUDA kernels: the six twins of
 `tools/kernel_bench.py` (which times the Pallas kernels against XLA on
-the TPU).
+the TPU) and the small-table embedding backward.
 
     python -m sparrowrecsys_torch.tools.kernel_bench [--kernel NAME ...]
         [--json-out PATH]
 
 Each kernel (fm_cross and din_attention with their backwards, rows_gather,
-rows_write) is checked against its plain PyTorch version on the card, at
+rows_write, embedding_bwd) is checked against its plain PyTorch version on the card, at
 the serving or training path's shapes and at the large shapes of
 KERNELS.md, then timed: CUDA-event ms, device ms under torch.profiler,
 the bound (the bytes it must move at HBM_BYTES_PER_S, or its operations
 at the rate its arithmetic can reach, whichever is longer, counted on this
 call's data: F32_FLOPS, and TC_F32_FLOPS for the DIN kernels, whose
 products run on the tensor cores), the plain version's ms and, where one PyTorch call computes the same function
-(`index_select`, `index_copy_`), its ms and device ms. Each timed call
+(`index_select`, `index_copy_`; for embedding_bwd the parent's backward,
+the mask's `where` and `embedding_dense_backward`), its ms and device ms. Each timed call
 reads inputs that are not in L2 (`cycling`, `row_sets`). The row kernels
 run at the six row calls the DeepFMv2 trainer makes a step, kernel and
 library call in turns; `host_path` times their wrappers' host path part
@@ -56,7 +57,7 @@ WAVE_ROWS = 8192
 #: The training path's batch.
 TRAIN_BATCH = 65536
 KERNELS = ("fm_cross", "din_attention", "fm_cross_bwd", "din_attention_bwd",
-           "rows_gather", "rows_write")
+           "rows_gather", "rows_write", "embedding_bwd")
 
 
 def card_label() -> str:
@@ -199,6 +200,11 @@ def rows_gather_bytes(u, distinct, row_bytes):
 def rows_write_bytes(u, in_range, row_bytes):
     """The in-range rows read and written, every int32 id read."""
     return 2 * in_range * row_bytes + 4 * u
+
+
+def embedding_bwd_bytes(n, d, v, id_bytes):
+    """g's N rows and the N ids read once, the [V, D] gradient written."""
+    return n * d * 4 + n * id_bytes + v * d * 4
 
 
 def in_turns(fns: dict, measure, rounds: int = 8) -> dict:
@@ -692,6 +698,99 @@ def rows_cases(iters_small, iters_large):
     return out
 
 
+def zipf_ids(n, lo, hi, s, generator):
+    """n int32 ids in [lo, hi) on the card, id lo + r - 1 with probability
+    proportional to 1 / r^s: the benchmark's movie ids."""
+    import torch
+
+    ranks = torch.arange(1, hi - lo + 1, device="cuda", dtype=torch.float64)
+    cdf = torch.cumsum(ranks.pow(-s), 0)
+    u = torch.rand(n, generator=generator, device="cuda", dtype=torch.float64) * cdf[-1]
+    return (lo + torch.searchsorted(cdf, u).clamp_(max=hi - lo - 1)).to(torch.int32)
+
+
+def check_embedding_bwd(b, t, v, d, lo, iters, label):
+    """embedding_bwd on [B, T] ids into a [V, D] table: Zipf(1.0) over
+    [1, V) where lo = 1 (DIN's movie lookup: the candidate and the
+    history), else uniform over [-1, V + 1) (a genre column: -1 and ids
+    >= V masked). Checked first on a gradient of multiples of 1/64 in
+    [-1/16, 1/16], whose every partial sum is exact in float32: the kernel,
+    its twin and the library call bit-equal, whatever their order; then on
+    a normal gradient against a float64 sum (a float32 sum's error, within
+    2^-20 of the cell's sum of |g|), two calls bit-equal. Timed beside the
+    bound, the twin and the parent's backward (`where` on the mask, then
+    `embedding_dense_backward` on the clamped int64 ids, both computed
+    in the forward)."""
+    import torch
+
+    from sparrowrecsys_torch.ops.embedding import bwd_plan, embedding_bwd, embedding_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = b * t
+    if lo:
+        ids = zipf_ids(n, 1, v, 1.0, gen).view(b, t)
+    else:
+        ids = torch.randint(-1, v + 1, (b, t), generator=gen, device="cuda", dtype=torch.int32)
+    valid = (ids >= lo) & (ids < v)
+    safe = ids.clamp(0, v - 1).long()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = bwd_plan(n, v, d, 4, sms)
+
+    def library(gg):
+        masked = torch.where(valid.unsqueeze(-1), gg, gg.new_zeros(()))
+        return torch.ops.aten.embedding_dense_backward(masked, safe, v, -1, False)
+
+    exact = torch.randint(-4, 5, (b, t, d), generator=gen, device="cuda").float() / 64
+    before = embedding_bwd.launches
+    got = embedding_bwd(exact, ids, v, lo)
+    launched = embedding_bwd.launches - before
+    twin, lib = embedding_bwd_plain(exact, ids, v, lo, sms), library(exact)
+    torch.cuda.synchronize()
+    if launched != 1 or not torch.equal(got, twin) or not torch.equal(got, lib):
+        raise AssertionError(f"embedding_bwd {label}: launched {launched}; exact sums differ "
+                             f"from the twin by {(got - twin).abs().max().item()}, from the "
+                             f"library by {(got - lib).abs().max().item()}")
+    del exact, twin, lib
+    g = torch.randn(b, t, d, generator=gen, device="cuda")
+    got, again = embedding_bwd(g, ids, v, lo), embedding_bwd(g, ids, v, lo)
+    keep = valid.reshape(-1)
+    idx, rows = ids.reshape(-1)[keep].long(), g.reshape(-1, d)[keep]
+    ref = torch.zeros(v, d, dtype=torch.float64, device="cuda").index_add_(0, idx, rows.double())
+    l1 = torch.zeros(v, d, dtype=torch.float64, device="cuda").index_add_(
+        0, idx, rows.double().abs())
+    del idx, rows, keep
+    err = (got.double() - ref).abs()
+    twin_err = (embedding_bwd_plain(g, ids, v, lo, sms).double() - ref).abs()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"embedding_bwd {label}: two calls differ")
+    if not bool((err <= l1 * 2 ** -20).all()):
+        raise AssertionError(f"embedding_bwd {label}: max err {err.max().item()} against a "
+                             f"float64 sum")
+    counts = torch.bincount(ids[valid].long(), minlength=v)
+    nbytes = embedding_bwd_bytes(n, d, v, 4)
+    t_bound, by = bound(nbytes, n * d)
+    nxt = cycling((g, ids), nbytes)
+    calls = {"kernel": lambda: embedding_bwd(*nxt(), v, lo),
+             "library": lambda: library(nxt()[0])}
+    ms = in_turns(calls, lambda fn: timed(fn, iters), rounds=4)
+    row = {"shape": [b, t, v, d], "lo": lo, "label": label, "dtype": "float32",
+           "ids": "int32", "plan": plan._asdict(), "bytes": nbytes,
+           "valid_rows": int(valid.sum().item()),
+           "head_rows": int(counts.max().item()),
+           "max_abs_err": err.max().item(), "twin_max_abs_err": twin_err.max().item(),
+           "deterministic": True, "launches_per_call": launched,
+           "ms": ms["kernel"][0], "ms_range": ms["kernel"][1:],
+           "plain_ms": timed(lambda: embedding_bwd_plain(*nxt(), v, lo, sms), max(1, iters // 10)),
+           "bound_ms": t_bound, "bound_by": by,
+           "library_ms": ms["library"][0], "library_ms_range": ms["library"][1:],
+           "device_ms": device_ms(calls["kernel"], iters, "embedding_bwd"),
+           "plain_device_ms": device_ms(lambda: embedding_bwd_plain(*nxt(), v, lo, sms),
+                                        max(1, iters // 10)),
+           "library_device_ms": device_ms(calls["library"], iters)}
+    return row
+
+
 def _cases() -> Dict[str, List[Callable[[], dict]]]:
     """Each kernel's checks, in order: the path's shape first."""
     import torch
@@ -719,6 +818,13 @@ def _cases() -> Dict[str, List[Callable[[], dict]]]:
             lambda: check_din_attention_bwd(65536, 64, 128, 32, 3),
             # D=128, H=64: the shape whose block the first backward could not fit.
             lambda: check_din_attention_bwd(65536, 5, 128, 64, 10),
+        ],
+        "embedding_bwd": [
+            # DIN's movie lookup in the benchmark's cell: the candidate and
+            # 64 history ids of 131072 rows into the 1,001 x 10 table.
+            lambda: check_embedding_bwd(131072, 65, 1001, 10, 1, 50, "din movie"),
+            # A genre column of that batch into its 19 x 10 table.
+            lambda: check_embedding_bwd(131072, 1, 19, 10, 0, 200, "din genre"),
         ],
     }
 
@@ -753,7 +859,7 @@ def run(kernels=KERNELS, emit: Optional[Callable[[str, dict], None]] = None
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", action="append", choices=KERNELS,
-                    help="a kernel to time (repeatable); all six by default")
+                    help="a kernel to time (repeatable); all seven by default")
     ap.add_argument("--json-out", default="")
     args = ap.parse_args(argv)
     import torch

@@ -3,7 +3,8 @@
 These run only on a CUDA card (a CUDA kernel has no CPU mode): every
 kernel test carries the `cuda` marker and skips without one. The CPU tests
 check the `fm_cross_bwd` tolerance itself, the row kernels' launch plan,
-and the row wrappers' refusal of tensors on neither device. This file
+and the row wrappers' refusal of tensors on neither device (the
+embedding backward's CPU tests are in test_torch_embedding_bwd.py). This file
 imports no JAX, so the card's machine runs it without the JAX package's
 conftest:
 
@@ -19,6 +20,12 @@ from sparrowrecsys_torch.ops.attention import (
     din_attention_bwd,
     din_attention_bwd_plain,
     din_attention_plain,
+)
+from sparrowrecsys_torch.ops import embedding as emb
+from sparrowrecsys_torch.ops.embedding import (
+    embed_lookup,
+    embedding_bwd,
+    embedding_bwd_plain,
 )
 from sparrowrecsys_torch.ops.fm import fm_cross, fm_cross_bwd, fm_cross_bwd_plain, fm_cross_plain
 from sparrowrecsys_torch.ops.rowio import (
@@ -474,9 +481,146 @@ def test_adam_on_the_card_equals_the_cpu_bit_for_bit(cuda_device):
         assert torch.equal(f_card.buf.cpu(), f_cpu.buf)
 
 
+def _zipf_ids(n, lo, hi, seed):
+    """n int32 ids in [lo, hi) on the card, id lo + r - 1 with probability
+    proportional to 1 / r (the benchmark's movie ids)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ranks = torch.arange(1, hi - lo + 1, device="cuda", dtype=torch.float64)
+    cdf = torch.cumsum(1.0 / ranks, 0)
+    u = torch.rand(n, generator=g, device="cuda", dtype=torch.float64) * cdf[-1]
+    return (lo + torch.searchsorted(cdf, u).clamp_(max=hi - lo - 1)).to(torch.int32)
+
+
+def _exact_grads(shape, seed):
+    """Multiples of 1/64 in [-1/16, 1/16]: every partial sum of up to 2^17
+    of them is exact in float32, so any order of the sums gives the same
+    bits."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(-4, 5, shape, generator=g, device="cuda").float() / 64
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+def test_embedding_bwd_kernel_matches_its_twin_at_the_cells_shape(cuda_device):
+    """DIN's movie lookup in the benchmark's cell: [131072, 65] Zipf(1.0)
+    ids in [1, 1001) into the 1,001 x 10 table, lo = 1. On exact sums the
+    kernel, its twin and the library's backward agree bit for bit; on a
+    normal gradient the kernel is within a float32 sum's rounding of a
+    float64 sum, and two calls agree bit for bit."""
+    ids = _zipf_ids(131072 * 65, 1, 1001, 17).view(131072, 65)
+    ids[0, :3] = torch.tensor([0, -1, 1001], dtype=torch.int32)   # masked rows among them
+    exact = _exact_grads((131072, 65, 10), 18)
+    got = embedding_bwd(exact, ids, 1001, 1)
+    assert torch.equal(got, embedding_bwd_plain(exact, ids, 1001, 1, _sms()))
+    valid = ((ids >= 1) & (ids < 1001)).unsqueeze(-1)
+    lib = torch.ops.aten.embedding_dense_backward(
+        torch.where(valid, exact, 0.0), ids.clamp(0, 1000).long(), 1001, -1, False)
+    assert torch.equal(got, lib)
+    del exact, lib
+    g = torch.randn(131072, 65, 10, generator=torch.Generator(device="cuda").manual_seed(19),
+                    device=cuda_device)
+    got, again = embedding_bwd(g, ids, 1001, 1), embedding_bwd(g, ids, 1001, 1)
+    assert torch.equal(got, again)
+    keep = valid.reshape(-1)
+    idx, rows = ids.reshape(-1)[keep].long(), g.reshape(-1, 10)[keep].double()
+    ref = torch.zeros(1001, 10, dtype=torch.float64, device=cuda_device).index_add_(0, idx, rows)
+    l1 = torch.zeros(1001, 10, dtype=torch.float64, device=cuda_device).index_add_(
+        0, idx, rows.abs())
+    # A float32 sum in blocks of a few thousand rows: within 2^-20 of the
+    # cell's sum of |g| (the head cell's error is some 1e-3 of 8e5).
+    assert bool(((got.double() - ref).abs() <= l1 * 2 ** -20).all())
+    twin = embedding_bwd_plain(g, ids, 1001, 1, _sms())
+    assert bool(((twin.double() - ref).abs() <= l1 * 2 ** -20).all())
+
+
+#: (ids shape, V, D, lo, id dtype, offset of g in floats): the genre
+#: lookups (-1 and ids >= V masked), int64 ids, a g view 4 bytes off 16
+#: (the 4-byte staging), N = 0, a table at the budget's edge, D = 1 and
+#: D = MAX_DIM, a ragged last tile, one row.
+EMB_BWD_CASES = [
+    ((131072,), 19, 10, 0, torch.int32, 0), ((4096, 65), 1001, 10, 1, torch.int64, 0),
+    ((3000, 7), 1001, 11, 0, torch.int32, 1), ((0,), 1001, 10, 1, torch.int32, 0),
+    ((5000, 3), 1024, 16, 1, torch.int64, 0), ((70001,), 1001, 1, 0, torch.int32, 0),
+    ((999,), 64, 256, 0, torch.int32, 0), ((1,), 1001, 10, 1, torch.int32, 3),
+    ((65536,), 16384, 1, 0, torch.int64, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,v,d,lo,dtype,offset", EMB_BWD_CASES)
+def test_embedding_bwd_kernel_matches_its_twin(cuda_device, shape, v, d, lo, dtype, offset):
+    """Exact sums bit-equal to the twin; launches counted once a call."""
+    n = int(np.prod(shape))
+    gen = torch.Generator(device="cuda").manual_seed(n + v)
+    ids = torch.randint(-1, v + 2, shape, generator=gen, device=cuda_device).to(dtype)
+    if n > 16:
+        ids.view(-1)[: n // 2] = _zipf_ids(n // 2, lo, v, n).to(dtype)
+    base = _exact_grads((n * d + offset,), v)
+    g = base[offset:].view(*shape, d)
+    before = embedding_bwd.launches
+    got = embedding_bwd(g, ids, v, lo)
+    assert embedding_bwd.launches == before + 1
+    assert got.shape == (v, d) and got.dtype == torch.float32
+    assert torch.equal(got, embedding_bwd_plain(g, ids, v, lo, _sms()))
+    assert torch.equal(got, embedding_bwd(g, ids, v, lo))
+
+
+@pytest.mark.cuda
+def test_embedding_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    g = torch.zeros(8, 10, device=cuda_device)
+    before = embedding_bwd.launches
+    with pytest.raises(ValueError, match="budget"):
+        embedding_bwd(g, ids, 30001, 0)                          # the user table: no fall-back
+    with pytest.raises(ValueError, match="float32"):
+        embedding_bwd(g.bfloat16(), ids, 1001, 0)
+    with pytest.raises(ValueError, match="int64"):
+        embedding_bwd(g, ids.short(), 1001, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bwd(torch.zeros(10, 8, device=cuda_device).t(), ids, 1001, 0)
+    with pytest.raises(ValueError, match="ids on"):
+        embedding_bwd(g, ids.cpu(), 1001, 0)
+    with pytest.raises(ValueError, match="lo"):
+        embedding_bwd(g, ids, 1001, 2)
+    assert embedding_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_embedding_lookups_on_the_card_take_the_kernel_where_they_fit(cuda_device):
+    """The 1,001 x 10 and 1,001 x 11 tables and a 19-row genre table take
+    the kernel's backward and give the CPU's gradients; the 30,001-row
+    user table, a bfloat16 cast and a lookup under no_grad run the parent's
+    ops, and no-grad adds no autograd node."""
+    gen = torch.Generator().manual_seed(23)
+    ids = torch.randint(-1, 1003, (512, 9), generator=gen, dtype=torch.int32)
+    for (v, d), mask_zero, takes in (((1001, 10), True, True), ((1001, 11), False, True),
+                                     ((19, 10), False, True), ((30001, 10), False, False)):
+        cpu = torch.randn(v, d, generator=gen, requires_grad=True)
+        card = cpu.detach().to(cuda_device).requires_grad_()
+        w = torch.randn(512, 9, d, generator=gen)
+        (embed_lookup(cpu, ids, mask_zero=mask_zero) * w).sum().backward()
+        before = embedding_bwd.launches
+        out = embed_lookup(card, ids.to(cuda_device), mask_zero=mask_zero)
+        assert (type(out.grad_fn).__name__ == "_MaskedLookupBackward") == takes
+        (out * w.to(cuda_device)).sum().backward()
+        assert embedding_bwd.launches == before + takes
+        torch.testing.assert_close(card.grad.cpu(), cpu.grad, rtol=1e-5, atol=1e-5)
+    table = torch.randn(1001, 10, device=cuda_device, requires_grad=True)
+    card_ids = ids.to(cuda_device)
+    assert not emb.takes_kernel(table.bfloat16(), card_ids)
+    assert type(embed_lookup(table.bfloat16(), card_ids).grad_fn).__name__ != \
+        "_MaskedLookupBackward"
+    with torch.no_grad():
+        assert not emb.takes_kernel(table, card_ids)
+        assert embed_lookup(table, card_ids).grad_fn is None
+
+
 @pytest.mark.cuda
 def test_kernels_leave_the_callers_current_device(cuda_device):
-    """Each of the six kernels launched on cuda:1 from a thread whose
+    """Each of the seven kernels launched on cuda:1 from a thread whose
     current device is cuda:0 leaves cuda:0 current (PyTorch reads its
     current device from the same CUDA thread-local the entry points set)."""
     if torch.cuda.device_count() < 2:
@@ -498,6 +642,7 @@ def test_kernels_leave_the_callers_current_device(cuda_device):
         "din_attention_bwd": lambda: din_attention_bwd(*args, gd),
         "rows_gather": lambda: rows_gather(table, ids),
         "rows_write": lambda: rows_write(table, ids, rows),
+        "embedding_bwd": lambda: embedding_bwd(rows, ids, 100, 0),
     }
     with torch.cuda.device(0):
         for name, call in calls.items():
