@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: compile the hand-written kernels (csrc/*.cu) with nvcc.
-3. kernels (`tools.kernel_bench.run`): each of the seven kernels (fm_cross
+3. kernels (`tools.kernel_bench.run`): each of the eleven kernels (fm_cross
    and din_attention with their backwards, rows_gather, rows_write,
-   embedding_bwd) against its plain PyTorch version on the card, at the serving or
+   embedding_bwd, DIEN's GRU and AUGRU scans forward and backward) against
+   its plain PyTorch version on the card, at the serving or
    training path's shapes and at the large shapes of KERNELS.md, timed
    (CUDA events, and torch.profiler for the device's own time) on inputs
    that are not in L2, beside its bound and, for the row kernels, the
@@ -410,7 +411,8 @@ TRAIN_MODELS = {
     "neuralcf": ("synthetic_ctr_dataset", None, (), 1e-2),
     "neuralcf_two_tower": ("synthetic_ctr_dataset", None, (), 1e-2),
     "dien": ("synthetic_sequence_ctr_dataset", {"emb_userId": ("userId",)},
-             ("rows_gather", "rows_write"), 1e-3),
+             ("rows_gather", "rows_write", "gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd",
+              "augru_scan_bwd"), 1e-3),
 }
 
 
@@ -627,11 +629,12 @@ def step_breakdown(trainer, params, ds, iters: int = 10):
 
 
 def recurrence_breakdown(t: int = 5, d: int = 10, iters: int = 10):
-    """DIEN's two recurrences alone (`ops/augru.py`, the autodiff loop DIEN
-    trains with) at the train step's shape [TRAIN_BATCH, T, D]: device
-    operations and busy ms per call of the forward and of forward plus
-    backward, under torch.profiler. The launch count is what a CUDA graph
-    of the step would fold."""
+    """DIEN's two recurrences alone (`ops/augru.py`: on the card one scan
+    kernel a recurrence and direction) at the train step's shape
+    [TRAIN_BATCH, T, D]: device operations and busy ms per call of the
+    forward and of forward plus backward, under torch.profiler, and the
+    scans' launches a call. Raises unless each scan kernel launched once a
+    recurrence and direction."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -657,15 +660,21 @@ def recurrence_breakdown(t: int = 5, d: int = 10, iters: int = 10):
 
     out = {}
     for name, fn in (("forward", forward), ("forward_backward", forward_backward)):
+        reset_counts()
         fn()
         torch.cuda.synchronize()
+        scans = {k: v for k, v in read_counts().items() if "_scan_" in k}
+        want = {k: int(name == "forward_backward" or k.endswith("fwd")) for k in scans}
+        if scans != want:
+            raise AssertionError(f"dien recurrences, {name}: scan launches {scans}, not {want}")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         us = device_us(prof)
         ops = us.pop(None)
-        out[name] = {"device_ops": ops / iters, "device_busy_ms": sum(us.values()) / 1e3 / iters}
+        out[name] = {"device_ops": ops / iters, "device_busy_ms": sum(us.values()) / 1e3 / iters,
+                     "scan_launches": scans}
     return out
 
 
@@ -2242,7 +2251,7 @@ def mesh_ranks(cases, singles, device="cuda"):
 
 
 def mesh_phase(device: str = "cuda"):
-    """Phase 9: the multi-device plane on the one card. Returns the seven
+    """Phase 9: the multi-device plane on the one card. Returns the eleven
     kernels' launches under it; each must be at least 1."""
     cases = {name: mesh_case(name, device) for name in MESH_MODELS}
     local_counts, singles = one_rank_plans(cases, device)
@@ -2415,7 +2424,7 @@ def mfu_rows(device: str = "cuda"):
 
 
 def tail_phase(synthetic, device: str = "cuda"):
-    """Phase 10: the last of the JAX package. Returns the seven kernels'
+    """Phase 10: the last of the JAX package. Returns the eleven kernels'
     launches under it."""
     t0 = time.perf_counter()
     native_checks(synthetic)
@@ -2552,6 +2561,9 @@ def main() -> int:
         entry("embedding_bwd", "cuda", "sparrowrecsys_torch/csrc/embedding_bwd.cu",
               "none (an XLA one-hot product, sparrowrecsys_tpu/ops/embedding.py:59)",
               bench["embedding_bwd"]),
+        *(entry(k, "cuda", "sparrowrecsys_torch/csrc/recurrence.cu",
+                "none (lax.scan over plain products, sparrowrecsys_tpu/ops/augru.py)", bench[k])
+          for k in ("gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd", "augru_scan_bwd")),
     ]}
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

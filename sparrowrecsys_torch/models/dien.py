@@ -4,7 +4,8 @@
 - one shared movie table with `mask_zero` for the candidate, the history
   and the per-step negatives (three gathers, or one with `merged_gather`);
 - a masked GRU over the history (`ops/augru.py::gru`);
-- attention: sigmoid Dense(32) -> sigmoid Dense(1) over hidden * candidate;
+- attention: sigmoid Dense(32) -> sigmoid Dense(1) over hidden * candidate,
+  one scalar a step;
 - the AUGRU over the hidden states with the attention (`augru`);
 - [interest, candidate, user profile, context] -> Dense(hidden) -> PReLU
   -> Dense(hidden // 2) -> PReLU -> Dense(1): logits [B];
@@ -21,8 +22,15 @@ reference's sign, unmasked), "paper" (BCE + alpha * sum_t of
 -log(pos_t) - log(1 - neg_t) over the steps whose next history id
 exists; "mean" divides by their count) or "none" (no aux parameters, no
 aux compute, aux = 0). The recurrences stay in float32 under any
-`compute_dtype`. Parameter names are the flax ones; the recurrent
-kernels are root-level [in, out] parameters, as flax has them.
+`compute_dtype`; on the card each is one kernel launch a direction
+(`ops/augru.py`). `recurrence_custom_vjp` (the hand-written backward: on
+the CPU the kernels' twins) and `recurrence_remat` (None: remat from
+T = 64 on) choose the backward off the card's kernels, which take every
+float32 state up to 32 wide with their own. The recurrences
+are the profiler ranges `dien.gru` and `dien.augru` forward and
+`dien.gru.backward` and `dien.augru.backward` backward while a profiler
+records (`utils/profiling.py`). Parameter names are the flax ones; the
+recurrent kernels are root-level [in, out] parameters, as flax has them.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from sparrowrecsys_torch.models.features import (
     numeric_stack,
 )
 from sparrowrecsys_torch.ops.augru import AUGRUGate, AUGRUParams, GRUParams, augru, gru
+from sparrowrecsys_torch.utils.profiling import backward_span, span
 
 AUX_MODES = ("reference", "paper", "none")
 #: Width of the attention's and the aux heads' first layer (the JAX
@@ -158,14 +167,24 @@ class DIEN(nn.Module):
         remat = self.recurrence_remat if self.recurrence_remat is not None else t >= 64
         cand, hist, neg = self._lookups(features, hist_ids)
 
-        hidden = gru(GRUParams(self.gru_kernel, self.gru_recurrent, self.gru_bias),
-                     hist, hist_mask, custom_vjp=self.recurrence_custom_vjp,
-                     remat=remat)                                    # [B, T, D]
+        paths = {"custom_vjp": self.recurrence_custom_vjp, "remat": remat}
+
+        def gru_layer(x, *w):
+            return gru(GRUParams(*w), x, hist_mask, **paths)
+
+        def augru_layer(states, att, *w):
+            return augru(AUGRUParams(*(AUGRUGate(*w[i:i + 3]) for i in (0, 3, 6))), states,
+                         att, **paths)
+
+        with span("dien.gru"):
+            hidden = backward_span("dien.gru.backward", gru_layer, hist, self.gru_kernel,
+                                   self.gru_recurrent, self.gru_bias)     # [B, T, D]
         att = torch.sigmoid(self.att_dense32(hidden * cand[:, None, :]))
-        att = torch.sigmoid(self.att_dense1(att)).expand_as(hidden)  # [B, T, D]
-        interest = augru(AUGRUParams(self._gate("r"), self._gate("z"), self._gate("h")),
-                         hidden, att, custom_vjp=self.recurrence_custom_vjp,
-                         remat=remat)                                # [B, D]
+        att = torch.sigmoid(self.att_dense1(att))                    # [B, T, 1]
+        with span("dien.augru"):
+            interest = backward_span("dien.augru.backward", augru_layer, hidden, att,
+                                     *self._gate("r"), *self._gate("z"),
+                                     *self._gate("h"))              # [B, D]
 
         profile = torch.cat([self.emb_userId(features["userId"]),
                              self.emb_userGenre1(features["userGenre1"]),

@@ -63,6 +63,14 @@ SIGNATURES = {
     # g, ids, partials, grad, int64 scalars (N, V, D, lo, id bytes, the
     # plan of ops/embedding.py::bwd_plan, device), stream
     "embedding_bwd_f32": 6,
+    # gx, u, mask, hs, int64 scalars (B, T, H, device), stream
+    "gru_scan_fwd_f32": 6,
+    # gx, u, mask, hs, dhs, dgx, ops, dh0, scalars, stream
+    "gru_scan_bwd_f32": 10,
+    # x, u_rz, u_h, att, hs, hfin, scalars, stream
+    "augru_scan_fwd_f32": 8,
+    # x, u_rz, u_h, att, hs, dhfin, dx, ops, datt, dh0, scalars, stream
+    "augru_scan_bwd_f32": 12,
 }
 
 _lock = threading.Lock()
@@ -152,15 +160,17 @@ def library() -> ctypes.CDLL:
 
 
 def launch_counters() -> dict:
-    """The seven kernels' wrappers by name; each carries `launches`, the
+    """The eleven kernels' wrappers by name; each carries `launches`, the
     kernel calls since it was last set to 0."""
-    from sparrowrecsys_torch.ops import attention, embedding, fm, rowio
+    from sparrowrecsys_torch.ops import attention, augru, embedding, fm, rowio
 
     return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
             "din_attention": attention.din_attention,
             "din_attention_bwd": attention.din_attention_bwd,
             "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write,
-            "embedding_bwd": embedding.embedding_bwd}
+            "embedding_bwd": embedding.embedding_bwd,
+            "gru_scan_fwd": augru.gru_scan_fwd, "gru_scan_bwd": augru.gru_scan_bwd,
+            "augru_scan_fwd": augru.augru_scan_fwd, "augru_scan_bwd": augru.augru_scan_bwd}
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -1,12 +1,13 @@
-"""Microbenchmarks of the port's seven CUDA kernels: the six twins of
+"""Microbenchmarks of the port's eleven CUDA kernels: the six twins of
 `tools/kernel_bench.py` (which times the Pallas kernels against XLA on
-the TPU) and the small-table embedding backward.
+the TPU), the small-table embedding backward and DIEN's four scans.
 
     python -m sparrowrecsys_torch.tools.kernel_bench [--kernel NAME ...]
         [--json-out PATH]
 
 Each kernel (fm_cross and din_attention with their backwards, rows_gather,
-rows_write, embedding_bwd) is checked against its plain PyTorch version on the card, at
+rows_write, embedding_bwd, the GRU's and AUGRU's scans forward and backward)
+is checked against its plain PyTorch version on the card, at
 the serving or training path's shapes and at the large shapes of
 KERNELS.md, then timed: CUDA-event ms, device ms under torch.profiler,
 the bound (the bytes it must move at HBM_BYTES_PER_S, or its operations
@@ -57,7 +58,8 @@ WAVE_ROWS = 8192
 #: The training path's batch.
 TRAIN_BATCH = 65536
 KERNELS = ("fm_cross", "din_attention", "fm_cross_bwd", "din_attention_bwd",
-           "rows_gather", "rows_write", "embedding_bwd")
+           "rows_gather", "rows_write", "embedding_bwd",
+           "gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd", "augru_scan_bwd")
 
 
 def card_label() -> str:
@@ -791,6 +793,119 @@ def check_embedding_bwd(b, t, v, d, lo, iters, label):
     return row
 
 
+def gru_scan_cost(b, t, h, live_steps):
+    """gru_scan_fwd: gx [B, T, 3H], the mask (a byte a step) and U [H, 3H]
+    read, hs [B, T, H] written; 3H^2 multiply-adds a live step."""
+    return (b * t * 3 * h + 3 * h * h + b * t * h) * 4 + b * t, 2 * live_steps * 3 * h * h
+
+
+def gru_scan_bwd_cost(b, t, h, live_steps):
+    """The GRU's backward: dhs [B, T, H], gx, the mask, U and hs read, dgx
+    [B, T, 3H] and dU [H, 3H] written; the dh chain's 3H^2 and the weight
+    gradients' 3H^2 multiply-adds a live step."""
+    nbytes = (b * t * h + b * t * 3 * h + 3 * h * h + b * t * h
+              + b * t * 3 * h + 3 * h * h) * 4 + b * t
+    return nbytes, 2 * live_steps * 6 * h * h
+
+
+def augru_scan_cost(b, t, h):
+    """augru_scan_fwd: x [B, T, 3H], the attention [B, T], U_rz and U_h
+    read, the final state [B, H] written; 3H^2 multiply-adds a step."""
+    return (b * t * 3 * h + b * t + 3 * h * h + b * h) * 4, 2 * b * t * 3 * h * h
+
+
+def augru_scan_bwd_cost(b, t, h):
+    """The AUGRU's backward: dh [B, H], x, the attention, U and the final
+    state read, dx [B, T, 3H], the attention's gradient [B, T] and dU
+    written; 6H^2 multiply-adds a step."""
+    nbytes = (b * h + b * t * 3 * h + b * t + 3 * h * h + b * h
+              + b * t * 3 * h + b * t + 3 * h * h) * 4
+    return nbytes, 2 * b * t * 6 * h * h
+
+
+def check_scan(kernel, b, t, h, iters):
+    """One of DIEN's scan kernels at [B, T, H] (every step live, as DIEN's
+    histories of real ids are) against its twin, then timed beside its
+    bound and the per-step loop it replaces: forward, the plain path's
+    loop without gradients; backward, autograd's pass through that loop
+    (the graph kept, `retain_graph`); and the twin, the plain version. The
+    backward kernel's time is the kernel's alone; the bound is the whole
+    backward's, whose weight-gradient products run after it. No PyTorch
+    call computes the same function (`library_ms` None)."""
+    import torch
+
+    from sparrowrecsys_torch.ops import augru as A
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(b, t, 3 * h, generator=gen, device="cuda") * 0.5
+    mask = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    att = torch.rand(b, t, generator=gen, device="cuda")
+    u = torch.randn(h, 3 * h, generator=gen, device="cuda") * 0.3
+    u_rz, u_h = u[:, :2 * h].contiguous(), u[:, 2 * h:].contiguous()
+    g = torch.randn(b, t, h, generator=gen, device="cuda")
+    g_fin = g[:, -1].contiguous()
+    gru = kernel.startswith("gru")
+    if gru:
+        hs = A.gru_scan_fwd(u, x, mask)
+        twin_hs = A.gru_scan_fwd_plain(u, x, mask)
+        fwd = lambda xx: A.gru_scan_fwd(u, xx, mask)  # noqa: E731
+        bwd = lambda xx: A.gru_scan_bwd(u, xx, mask, hs, g)  # noqa: E731
+        twin_bwd = lambda: A.gru_scan_bwd_plain(u, x, mask, twin_hs, g)  # noqa: E731
+        nbytes, ops = (gru_scan_cost if kernel.endswith("fwd") else gru_scan_bwd_cost)(
+            b, t, h, b * t)
+    else:
+        _, hs = A.augru_scan_fwd(u_rz, u_h, x, att)
+        _, twin_hs = A.augru_scan_fwd_plain(u_rz, u_h, x, att)
+        fwd = lambda xx: A.augru_scan_fwd(u_rz, u_h, xx, att)  # noqa: E731
+        bwd = lambda xx: A.augru_scan_bwd(u_rz, u_h, xx, att, hs, g_fin)  # noqa: E731
+        twin_bwd = lambda: A.augru_scan_bwd_plain(u_rz, u_h, x, att, twin_hs, g_fin)  # noqa: E731
+        nbytes, ops = (augru_scan_cost if kernel.endswith("fwd") else augru_scan_bwd_cost)(
+            b, t, h)
+    call = fwd if kernel.endswith("fwd") else bwd
+    got, again = call(x), call(x)
+    want = (twin_hs if gru else A.augru_scan_fwd_plain(u_rz, u_h, x, att)) \
+        if kernel.endswith("fwd") else twin_bwd()
+    got, again, want = [v if isinstance(v, tuple) else (v,) for v in (got, again, want)]
+    abs_errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    errs = [e / float(w.abs().max().clamp_min(1e-30)) for e, w in zip(abs_errs, want)]
+    tol = 1e-5 if kernel.endswith("fwd") else 1e-4
+    if max(errs) > tol or not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{kernel} [{b}, {t}, {h}]: errors against the twin {errs}")
+
+    # The per-step loop the kernel replaces, on the same inputs.
+    xs = x.detach().requires_grad_()
+    x_tm = xs.transpose(0, 1)
+    h0 = x.new_zeros(b, h)
+    if gru:
+        out = A._gru_scan(u, x_tm, mask.transpose(0, 1), h0).transpose(0, 1)
+        loop_fwd = lambda: A._gru_scan(u, x_tm.detach(), mask.transpose(0, 1), h0)  # noqa: E731
+        gout = g
+    else:
+        att_tm = att.transpose(0, 1)[..., None].expand(t, b, h)
+        out = A._augru_scan(u_rz, u_h, x_tm, att_tm, h0)
+        loop_fwd = lambda: A._augru_scan(u_rz, u_h, x_tm.detach(), att_tm, h0)  # noqa: E731
+        gout = g_fin
+    loop_bwd = lambda: torch.autograd.grad(out, xs, gout, retain_graph=True)  # noqa: E731
+    loop = loop_fwd if kernel.endswith("fwd") else loop_bwd
+    if kernel.endswith("fwd"):
+        plain = (lambda: A.gru_scan_fwd_plain(u, x, mask)) if gru else \
+            (lambda: A.augru_scan_fwd_plain(u_rz, u_h, x, att))
+    else:
+        plain = twin_bwd
+    nxt = cycling((x,), x.numel() * 4)
+    t_bound, by = bound(nbytes, ops)
+    with torch.no_grad():
+        ms = timed(lambda: call(nxt()[0]), iters)
+        dev = device_ms(lambda: call(nxt()[0]), iters, kernel)
+    loop_iters = max(1, iters // 10)
+    return {"shape": [b, t, h], "dtype": "float32", "bytes": nbytes, "operations": ops,
+            "max_abs_err": max(abs_errs), "max_rel_err": max(errs), "deterministic": True,
+            "ms": ms, "device_ms": dev, "bound_ms": t_bound, "bound_by": by,
+            "plain_ms": timed(plain, loop_iters), "plain_device_ms": device_ms(plain, loop_iters),
+            "library_ms": None,
+            "loop_ms": timed(loop, loop_iters), "loop_device_ms": device_ms(loop, loop_iters)}
+
+
 def _cases() -> Dict[str, List[Callable[[], dict]]]:
     """Each kernel's checks, in order: the path's shape first."""
     import torch
@@ -826,6 +941,11 @@ def _cases() -> Dict[str, List[Callable[[], dict]]]:
             # A genre column of that batch into its 19 x 10 table.
             lambda: check_embedding_bwd(131072, 1, 19, 10, 0, 200, "din genre"),
         ],
+        # DIEN's recurrences in the benchmark's cell (batch 131072, 64-movie
+        # histories) and at its published T = 5 at the training batch.
+        **{k: [lambda k=k: check_scan(k, 131072, 64, 10, 20),
+               lambda k=k: check_scan(k, TRAIN_BATCH, 5, 10, 100)]
+           for k in ("gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd", "augru_scan_bwd")},
     }
 
 
@@ -859,7 +979,7 @@ def run(kernels=KERNELS, emit: Optional[Callable[[str, dict], None]] = None
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", action="append", choices=KERNELS,
-                    help="a kernel to time (repeatable); all seven by default")
+                    help="a kernel to time (repeatable); all eleven by default")
     ap.add_argument("--json-out", default="")
     args = ap.parse_args(argv)
     import torch

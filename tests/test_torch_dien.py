@@ -3,11 +3,16 @@ all three `aux_mode`s and under narrow dtypes, every parameter's gradient
 of `dien_loss_fn`, the loss itself, the merged gather, the negatives
 (from the data, bit-equal to JAX's, and in the step), the recurrences'
 `custom_vjp` and `remat` inside the model, and two-epoch fits against the
-JAX Trainer, with and without a lazy row-Adam user table.
+JAX Trainer, with and without a lazy row-Adam user table. The gradients
+and the fits run a second time on the card's path, the recurrences in
+`_GRUKernel` and `_AUGRUKernel`, whose wrappers take the kernels' twins
+for CPU tensors.
 
 Tolerances: logits and aux within 1e-5 of their largest value; each
 gradient within 1e-4 of its scale; fits as `test_torch_training.py`
 holds them (the JAX order and the same negative columns are injected)."""
+
+import collections
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,7 @@ from sparrowrecsys_torch.models.dien import (
     negative_cols,
     sample_negatives_in_graph,
 )
+from sparrowrecsys_torch.ops import augru as A
 from sparrowrecsys_torch.training.checkpoint import params_from_flax, params_to_flax
 from sparrowrecsys_torch.training.loop import Trainer
 from sparrowrecsys_tpu.config import TrainConfig as JaxTrainConfig
@@ -235,3 +241,34 @@ def test_two_epoch_fit_matches_jax(n, batch, sparse):
         ref_params, ref_history = ref.params, ref.history
     assert_fit_close(result, ref_history, ref_params, init, model)
     assert set(_flat(params_to_flax(result.params, model))) == set(_flat(ref_params))
+
+
+TWINS = ("gru_scan_fwd_plain", "gru_scan_bwd_plain", "augru_scan_fwd_plain",
+         "augru_scan_bwd_plain")
+
+
+@pytest.fixture
+def kernels_path(monkeypatch):
+    """The recurrences on the card's path, on the CPU: the kernels' twins,
+    each call counted."""
+    calls = collections.Counter()
+    monkeypatch.setattr(A, "_KERNEL_DEVICES", ("cuda", "cpu"))
+    for name in TWINS:
+        def counted(*args, _real=getattr(A, name), _name=name):
+            calls[_name] += 1
+            return _real(*args)
+        monkeypatch.setattr(A, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_logits_aux_loss_and_gradients_match_jax_on_the_kernels_path(mode, kernels_path):
+    test_logits_aux_loss_and_gradients_match_jax(mode)
+    assert all(kernels_path[n] for n in TWINS), kernels_path
+
+
+@pytest.mark.parametrize("n,batch,sparse", [(512, 128, False), (500, 64, True)],
+                         ids=["dense", "sparse_user_table_padded"])
+def test_two_epoch_fit_matches_jax_on_the_kernels_path(n, batch, sparse, kernels_path):
+    test_two_epoch_fit_matches_jax(n, batch, sparse)
+    assert all(kernels_path[n] for n in TWINS), kernels_path
