@@ -250,6 +250,7 @@ def serving_phase(device: str = "cuda"):
 
         fm_cross.launches = 0
         din_attention.launches = 0
+        din_attention.narrow_launches = 0
         for path in ("/getmovie?id=1", f"/getuser?id={users[0]}",
                      "/getrecommendation?genre=Action&size=8&sortby=rating",
                      "/getsimilarmovie?movieId=1&size=16&model=emb",
@@ -260,7 +261,8 @@ def serving_phase(device: str = "cuda"):
             json.loads(body)
         n_ranked = RANKED_REQUESTS * len(KERNEL_MODELS)
         wall = _ranked(base, users, KERNEL_MODELS, RANKED_REQUESTS)
-        counts = {"fm_cross": fm_cross.launches, "din_attention": din_attention.launches}
+        counts = {"fm_cross": fm_cross.launches, "din_attention": din_attention.launches,
+                  "din_attention.narrow": din_attention.narrow_launches}
         # A smoke reading of the host-bound serving rate over the whole
         # window, not a benchmark: one client process on the server's host.
         log(f"[serving] {n_ranked} ranked requests in {wall:.3f} s = "
@@ -404,8 +406,9 @@ TRAIN_MODELS = {
     "deepfm_v2": ("synthetic_ctr_dataset",
                   {"emb_userId": ("userId",), "emb_movieId": ("movieId",)},
                   ("fm_cross", "fm_cross_bwd", "rows_gather", "rows_write"), 1e-3),
-    "din": ("synthetic_sequence_ctr_dataset", None, ("din_attention", "din_attention_bwd"),
-            1e-2),
+    "din": ("synthetic_sequence_ctr_dataset", None,
+            ("din_attention", "din_attention_bwd", "din_attention.narrow",
+             "din_attention_bwd.narrow"), 1e-2),
     "embedding_mlp": ("synthetic_ctr_dataset", None, (), 1e-3),
     "wide_deep": ("synthetic_ctr_dataset", None, (), 1e-3),
     "neuralcf": ("synthetic_ctr_dataset", None, (), 1e-2),

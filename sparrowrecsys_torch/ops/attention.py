@@ -18,19 +18,29 @@ steps whose embedding row is all zero (`attention.py:48`, not "id != 0")
 - `din_attention_bwd_plain`: the gradients of all seven inputs, written
   out by hand (recompute, then back through the folded weight and
   unfold), not through autograd: the reference for the backward.
+- `din_attention_bwd_narrow_plain`: the plain version of the narrow
+  backward (`csrc/din_narrow.cu`): the candidate folded into the weight
+  per row, R_b = sum_t h_t^T dapre_t per row, and the weight gradients
+  summed per unit of `unit_rows` rows, then over the units in the
+  reduce's fixed order.
 - `din_attention`: a `torch.autograd.Function` whose residuals are the raw
   inputs, as JAX's `_din_fused_fwd`. Forward and backward each take the
-  plain version for a CPU tensor; for a CUDA tensor they launch the
-  hand-written kernels of `csrc/din_attention.cu` (the ports of
-  `din_attention_pallas` and of the per-step part of its VJP
-  `_din_fused_bwd`), or raise.
-- `din_attention_bwd`: the backward's wrapper, callable on its own. The
-  kernel (or, on the CPU, its plain version) writes the per-step terms;
-  the three [D, H] weight gradients are matrix products on them
+  plain version for a CPU tensor; for a CUDA tensor they launch
+  hand-written kernels (the ports of `din_attention_pallas` and of its
+  VJP `_din_fused_bwd`), or raise. `narrow(D, H)` picks which, from the
+  shapes alone: D <= 16 and H <= 32 take `csrc/din_narrow.cu` (float32
+  FFMA on the CUDA cores, the weight gradients summed inside the
+  backward), every other shape `csrc/din_attention.cu` (the tensor
+  cores).
+- `din_attention_bwd`: the backward's wrapper, callable on its own. On
+  the narrow path the kernel writes all seven gradients. Otherwise the
+  kernel (or, on the CPU, its plain version) writes the per-step terms
+  and the three [D, H] weight gradients are matrix products on them
   (`_din_weight_grads`), as XLA computes them for `jax.vjp(_unit)`.
 
-The kernels take every (B, T, D, H): `plan` picks how (steps a chunk,
-tiles of H, slices of D, whether the weights stay in shared memory). Both take float32; bfloat16
+The tensor-core kernels take every (B, T, D, H): `plan` picks how (steps
+a chunk, tiles of H, slices of D, whether the weights stay in shared
+memory). All take float32; bfloat16
 history and candidate are cast up first, as the JAX dispatch does for
 its kernel (`attention.py:157-159`), so the result is float32 (and the
 cast passes the gradient back in bf16).
@@ -60,6 +70,13 @@ CT_STEPS = 8
 #: shape than one `torch.mm` each, whose split of that dimension is
 #: cuBLAS's (`chip_smoke.py` times both).
 PRODUCT_SLICES = 512
+#: The narrow kernels' widths (`csrc/din_narrow.cu`): D <= NARROW_D and
+#: H <= NARROW_H, H padded to a warp's 32 lanes.
+NARROW_D, NARROW_H = 16, 32
+#: The narrow backward sums its weight gradients per unit of whole rows:
+#: at most UNIT_STEPS steps a unit (one row where T is longer), and rows
+#: few enough that a batch makes about UNITS units to spread over the card.
+UNIT_STEPS, UNITS = 4096, 2048
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -199,6 +216,24 @@ def _scalars(b: int, t: int, d: int, h: int, dev: int, backward: bool = False):
                                  p.wc_shared, p.ct, p.shared_bytes, dev)
 
 
+def narrow(d: int, h: int) -> bool:
+    """Whether a unit of width D and H takes the narrow kernels
+    (`csrc/din_narrow.cu`) rather than the tensor cores'."""
+    return d <= NARROW_D and h <= NARROW_H
+
+
+def unit_rows(b: int, t: int) -> int:
+    """Rows a unit of the narrow backward, from B and T alone (so the
+    order of every sum is fixed by the shape, whatever the grid)."""
+    return max(1, min(-(-UNIT_STEPS // t), -(-b // UNITS)))
+
+
+def narrow_partial_width(d: int) -> int:
+    """Floats of a unit's partial: [dk0 | db1], [dk1 | dalpha],
+    [dk2 | dw2], each [D + 1, 32], then db2, padded to 32."""
+    return 3 * (d + 1) * 32 + 32
+
+
 def hx_alone(d: int, h: int) -> bool:
     """Whether the backward writes h*c alone [B*T, D] (D > H: the weight
     products take dk0 from the history itself) rather than
@@ -301,6 +336,60 @@ def din_attention_bwd_plain(hist, cand, w1, b1, alpha, w2, b2, g):
     return dh, dc, dw1, db1, dalpha, dw2, db2
 
 
+def din_attention_bwd_narrow_plain(hist, cand, w1, b1, alpha, w2, b2, g, rows=None):
+    """The seven gradients of `din_attention_bwd_plain`, computed as the
+    narrow kernel computes them: the candidate folded into the weight per
+    row (W_c = (wa+wb) + diag(c) wd, u_c = b1 + c (wc-wa)), dh through
+    W_c, R_b = sum_t h_t^T dapre_t per row, dc from dsum and R_b, the
+    weight gradients summed per unit of `rows` rows (`unit_rows` by
+    default), and the units' partials summed as the reduce sums them: 32
+    interleaved runs in unit order, then the runs in order."""
+    hist, cand = _as_f32(hist, cand)
+    g = g.float()
+    b, t, d = hist.shape
+    h = w1.shape[-1]
+    wa, wb, wc, wd = w1[:d], w1[d:2 * d], w1[2 * d:3 * d], w1[3 * d:]
+    wab, wcma = wa + wb, wc - wa
+    fold = wab + cand[:, :, None] * wd                           # [B, D, H]
+    u = b1 + cand @ wcma                                         # [B, H]
+    pre = hist @ fold + u[:, None, :]                            # [B, T, H]
+    neg = pre < 0                                                # PReLU: 0 takes the identity
+    act = torch.where(neg, alpha * pre, pre)
+    s = torch.sigmoid(act @ w2 + b2)[..., 0]                     # [B, T]
+    mask = (hist != 0).any(dim=-1).to(s.dtype)
+    dl = (hist * g[:, None, :]).sum(-1) * mask * s * (1 - s)     # d logit
+    da = dl[..., None] * w2[:, 0]
+    dpre = torch.where(neg, alpha * da, da)                      # [B, T, H]
+    dh = (s * mask)[..., None] * g[:, None, :] + dpre @ fold.transpose(1, 2)
+    dsum = dpre.sum(1)                                           # [B, H]
+    r = hist.transpose(1, 2) @ dpre                              # R_b [B, D, H]
+    dc = dsum @ wcma.T + (wd * r).sum(-1)
+    # A row's share of each partial: [dk0 | db1], [dk1 | dalpha], [dk2 | dw2], db2.
+    dalpha = torch.where(neg, pre * da, 0.0).sum(1)              # [B, H]
+    dw2 = (act * dl[..., None]).sum(1)
+    per_row = torch.cat([
+        torch.cat([r, dsum[:, None]], 1),
+        torch.cat([cand[:, :, None] * dsum[:, None], dalpha[:, None]], 1),
+        torch.cat([cand[:, :, None] * r, dw2[:, None]], 1),
+    ], 1).reshape(b, -1)
+    per_row = torch.cat([per_row, dl.sum(1)[:, None]], 1)
+    rows = rows or unit_rows(b, t)
+    units = -(-b // rows)
+    runs = -(-units // 32) * 32
+    per_row = torch.nn.functional.pad(per_row, (0, 0, 0, runs * rows - b))
+    partial = per_row.reshape(runs, rows, -1).sum(1).reshape(runs // 32, 32, -1)
+    acc = partial[0]
+    for i in range(1, runs // 32):
+        acc = acc + partial[i]                                   # each run in unit order
+    total = acc[0]
+    for i in range(1, 32):
+        total = total + acc[i]                                   # then the runs in order
+    planes, db2 = total[:-1].reshape(3, d + 1, h), total[-1:]
+    dk0, dk1, dk2 = planes[0, :d], planes[1, :d], planes[2, :d]
+    dw1 = torch.cat([dk0 - dk1, dk0, dk1, dk2], dim=0)
+    return dh, dc, dw1, planes[0, d], planes[1, d], planes[2, d, :, None], db2
+
+
 def _tn(a, b) -> torch.Tensor:
     """a^T b for a [n, p] and b [n, q]: one batched product over
     `PRODUCT_SLICES` slices of the rows, summed in slice order, plus one
@@ -359,17 +448,27 @@ def _check(name, hist, cand, w1, b1, alpha, w2, b2, *more):
     return dev, b, t, d, h
 
 
+@functools.lru_cache(maxsize=1024)
+def _narrow_scalars(b: int, t: int, d: int, h: int, dev: int):
+    """The narrow entry points' int64 scalars (`enum Scalar` in
+    csrc/din_narrow.cu): B, T, D, H, rows a unit, device."""
+    return (ctypes.c_int64 * 6)(b, t, d, h, unit_rows(b, t), dev)
+
+
 def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     dev, b, t, d, h = _check("din_attention", hist, cand, w1, b1, alpha, w2, b2)
     if b * t * d == 0:
         return hist.new_zeros((b, d))
     out = hist.new_empty((b, d))
     lib = kernels.library()
-    err = lib.din_attention_f32(
-        hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), _scalars(b, t, d, h, dev),
-        kernels.stream_of(dev),
-    )
+    ptrs = (hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr())
+    if narrow(d, h):
+        err = lib.din_narrow_fwd_f32(*ptrs, _narrow_scalars(b, t, d, h, dev),
+                                     kernels.stream_of(dev))
+        din_attention.narrow_launches += 1
+    else:
+        err = lib.din_attention_f32(*ptrs, _scalars(b, t, d, h, dev), kernels.stream_of(dev))
     if err:
         kernels.check(lib, err, "din_attention")
     din_attention.launches += 1
@@ -415,11 +514,42 @@ def _din_attention_bwd_steps(hist, cand, w1, b1, alpha, w2, b2, g):
     return dh, dc, dapre, hx, dsum, small
 
 
+def _din_narrow_bwd(hist, cand, w1, b1, alpha, w2, b2, g):
+    """The seven gradients from the narrow kernel and its reduce: dh, dc,
+    and one buffer [dw1 | db1 | dalpha | dw2 | db2] returned as views."""
+    dev, b, t, d, h = _check("din_attention_bwd", hist, cand, w1, b1, alpha, w2, b2, g)
+    n = 4 * d * h
+    if b * t * d == 0:
+        grads = hist.new_zeros(n + 3 * h + 1)
+        dh, dc = hist.new_zeros(hist.shape), hist.new_zeros(cand.shape)
+    else:
+        new = hist.new_empty
+        dh, dc, grads = new(hist.shape), new(cand.shape), new(n + 3 * h + 1)
+        partial = new((-(-b // unit_rows(b, t)), narrow_partial_width(d)))
+        lib = kernels.library()
+        err = lib.din_narrow_bwd_f32(
+            hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+            partial.data_ptr(), grads.data_ptr(), _narrow_scalars(b, t, d, h, dev),
+            kernels.stream_of(dev),
+        )
+        if err:
+            kernels.check(lib, err, "din_attention_bwd")
+        din_attention_bwd.launches += 1
+        din_attention_bwd.narrow_launches += 1
+    return (dh, dc, grads[:n].view(4 * d, h), grads[n:n + h], grads[n + h:n + 2 * h],
+            grads[n + 2 * h:n + 3 * h, None], grads[n + 3 * h:])
+
+
 def din_attention_bwd(hist, cand, w1, b1, alpha, w2, b2, g):
     """The seven input gradients of `din_attention` for the output
-    gradient g [B, D]: the per-step terms from the kernel (the plain
-    version for a CPU tensor), dw1 from `_din_weight_grads`."""
+    gradient g [B, D]. On the card at narrow widths (`narrow`), all from
+    the narrow kernel; else the per-step terms from the tensor-core kernel
+    (the plain version for a CPU tensor) and dw1 from
+    `_din_weight_grads`."""
     hist, cand = _as_f32(hist, cand)
+    if hist.device.type != "cpu" and narrow(hist.shape[-1], w1.shape[-1]):
+        return _din_narrow_bwd(hist, cand, w1, b1, alpha, w2, b2, g)
     steps = din_attention_bwd_steps_plain if hist.device.type == "cpu" else _din_attention_bwd_steps
     dh, dc, dapre, hx, dsum, small = steps(hist, cand, w1, b1, alpha, w2, b2, g)
     h = dapre.shape[-1]
@@ -447,6 +577,25 @@ def din_attention(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     return _DINAttention.apply(hist, cand, w1, b1, alpha, w2, b2)
 
 
-#: Kernel launches since the last reset (plain integers on the wrappers).
+#: Kernel launches since the last reset (plain integers on the wrappers):
+#: `launches` counts both designs, `narrow_launches` the narrow kernels'.
 din_attention.launches = 0
 din_attention_bwd.launches = 0
+din_attention.narrow_launches = 0
+din_attention_bwd.narrow_launches = 0
+
+
+class NarrowCount:
+    """A wrapper's `narrow_launches` read and set as `launches`, the name
+    `kernels.launch_counters()` gives every counter."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.narrow_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.narrow_launches = n

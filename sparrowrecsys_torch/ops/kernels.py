@@ -55,6 +55,12 @@ SIGNATURES = {
     # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, dapre, hx, dsum,
     # scratch, small sums, scalars, grid, stream
     "din_attention_bwd_f32": 18,
+    # hist, cand, w1, b1, alpha, w2, b2, out, int64 scalars (B, T, D, H,
+    # rows a unit of ops/attention.py::unit_rows, device), stream
+    "din_narrow_fwd_f32": 10,
+    # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, scratch, grads,
+    # scalars, stream
+    "din_narrow_bwd_f32": 14,
     # table, ids, out, int64 scalars (V, U, row bytes, the plan of
     # ops/rowio.py::launch_plan, device), stream
     "rows_gather": 5,
@@ -160,13 +166,17 @@ def library() -> ctypes.CDLL:
 
 
 def launch_counters() -> dict:
-    """The eleven kernels' wrappers by name; each carries `launches`, the
-    kernel calls since it was last set to 0."""
+    """The kernels' wrappers by name; each carries `launches`, the kernel
+    calls since it was last set to 0. `din_attention` and
+    `din_attention_bwd` count both DIN designs; `din_attention.narrow` and
+    `din_attention_bwd.narrow` the narrow kernels alone."""
     from sparrowrecsys_torch.ops import attention, augru, embedding, fm, rowio
 
     return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
             "din_attention": attention.din_attention,
             "din_attention_bwd": attention.din_attention_bwd,
+            "din_attention.narrow": attention.NarrowCount(attention.din_attention),
+            "din_attention_bwd.narrow": attention.NarrowCount(attention.din_attention_bwd),
             "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write,
             "embedding_bwd": embedding.embedding_bwd,
             "gru_scan_fwd": augru.gru_scan_fwd, "gru_scan_bwd": augru.gru_scan_bwd,

@@ -1,6 +1,7 @@
-"""Microbenchmarks of the port's eleven CUDA kernels: the six twins of
+"""Microbenchmarks of the port's CUDA kernels: the six twins of
 `tools/kernel_bench.py` (which times the Pallas kernels against XLA on
-the TPU), the small-table embedding backward and DIEN's four scans.
+the TPU; DIN's pair in two designs, narrow and tensor-core), the
+small-table embedding backward and DIEN's four scans.
 
     python -m sparrowrecsys_torch.tools.kernel_bench [--kernel NAME ...]
         [--json-out PATH]
@@ -12,16 +13,19 @@ the serving or training path's shapes and at the large shapes of
 KERNELS.md, then timed: CUDA-event ms, device ms under torch.profiler,
 the bound (the bytes it must move at HBM_BYTES_PER_S, or its operations
 at the rate its arithmetic can reach, whichever is longer, counted on this
-call's data: F32_FLOPS, and TC_F32_FLOPS for the DIN kernels, whose
-products run on the tensor cores), the plain version's ms and, where one PyTorch call computes the same function
+call's data: F32_FLOPS, and TC_F32_FLOPS for the wide DIN kernels, whose
+products run on the tensor cores; the DIN rows give both), the plain
+version's ms and, where one PyTorch call computes the same function
 (`index_select`, `index_copy_`; for embedding_bwd the parent's backward,
 the mask's `where` and `embedding_dense_backward`), its ms and device ms. Each timed call
 reads inputs that are not in L2 (`cycling`, `row_sets`). The row kernels
 run at the six row calls the DeepFMv2 trainer makes a step, kernel and
 library call in turns; `host_path` times their wrappers' host path part
-by part. The DIN backward's device time is the whole call's: its per-step
-kernel, the reduce and the weight-gradient products (cuBLAS), with the
-kernel's own time and the products alone.
+by part. The DIN backward's device time is the whole call's: its kernel
+and reduce, and on the tensor cores' path the weight-gradient products
+(cuBLAS), with the kernel's own time and the products alone. The DIN rows
+run both designs: the narrow one (D <= 16, H <= 32) at the serving, T = 5
+training and benchmark cell's shapes, the tensor cores' at D = 128.
 
 One JSON row per kernel and shape, `{"kernel": name, ...}`, and the card's
 name and power limit (nvidia-smi). Needs a CUDA card: without one it
@@ -146,7 +150,7 @@ def cycling(inputs, nbytes: int):
 def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
     """(ms, "bytes" or "operations"): the longer of moving `nbytes` at
     HBM_BYTES_PER_S and doing `flops` at `rate` (F32_FLOPS; TC_F32_FLOPS
-    for the DIN kernels)."""
+    for the wide DIN kernels)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -317,6 +321,29 @@ def check_fm_cross(shape, dtype, iters):
     return row
 
 
+def din_bound(nbytes, flops, d, h) -> dict:
+    """The DIN rows' bound: the narrow kernels (`ops/attention.py::narrow`)
+    do their arithmetic in float32 FFMA, priced at F32_FLOPS; the wide
+    ones on the tensor cores, at TC_F32_FLOPS. Both ways are given: bytes
+    at HBM_BYTES_PER_S and operations at the kernel's rate."""
+    from sparrowrecsys_torch.ops.attention import narrow
+
+    rate = F32_FLOPS if narrow(d, h) else TC_F32_FLOPS
+    t_bound, by = bound(nbytes, flops, rate)
+    return {"bound_ms": t_bound, "bound_by": by, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / rate * 1e3, "ops_rate": rate,
+            "path": "narrow" if narrow(d, h) else "tensor_cores"}
+
+
+def din_marker(d, h, backward=False) -> str:
+    """The name that the DIN kernel of this shape's path carries."""
+    from sparrowrecsys_torch.ops.attention import narrow
+
+    if narrow(d, h):
+        return "din_narrow_bwd" if backward else "din_narrow_fwd"
+    return "din_attention_bwd" if backward else "din_attention_kernel"
+
+
 def live_counts(hist):
     """(live steps, rows with a live step) of a DIN history [B, T, D]: a
     step is live when its row has a non-zero element."""
@@ -349,15 +376,15 @@ def check_din_attention(b, t, d, h, iters):
     tol_ok = torch.allclose(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
     if not tol_ok:
         raise AssertionError(f"din_attention {(b, t, d, h)}: max err {err}")
-    t_bound, by = bound(*din_attention_cost(b, t, d, h, *live_counts(hist)), TC_F32_FLOPS)
     nxt = cycling((hist, cand), (b * t * d + b * d) * 4)
     weights = args[2:]
     row = {"shape": [b, t, d, h], "dtype": "float32", "max_abs_err": err,
            "ms": timed(lambda: din_attention(*nxt(), *weights), iters),
            "plain_ms": timed(lambda: din_attention_plain(*nxt(), *weights), iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+           **din_bound(*din_attention_cost(b, t, d, h, *live_counts(hist)), d, h),
+           "library_ms": None,
            "device_ms": device_ms(lambda: din_attention(*nxt(), *weights), iters,
-                                  "din_attention_kernel"),
+                                  din_marker(d, h)),
            "plain_device_ms": device_ms(lambda: din_attention_plain(*nxt(), *weights), iters)}
     return row
 
@@ -442,7 +469,9 @@ def check_din_attention_bwd(b, t, d, h, iters):
         _din_weight_grads,
         _tn,
         din_attention_bwd,
+        din_attention_bwd_narrow_plain,
         din_attention_bwd_plain,
+        narrow,
     )
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -472,23 +501,27 @@ def check_din_attention_bwd(b, t, d, h, iters):
     hist = hist.masked_fill(kink[..., None], 0.0).contiguous()
     del kink
     got = din_attention_bwd(hist, cand, *weights, go)
-    ref = din_attention_bwd_plain(hist, cand, *weights, go)
+    refs = {"plain": din_attention_bwd_plain(hist, cand, *weights, go)}
+    if narrow(d, h):
+        refs["narrow_plain"] = din_attention_bwd_narrow_plain(hist, cand, *weights, go)
     again = din_attention_bwd(hist, cand, *weights, go)
     torch.cuda.synchronize()
     errs = {}
-    for name, x, r, y in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref, again):
-        # float32 sums over B*T in another order than cuBLAS: 1e-4
-        # relative and 1e-4 of the gradient's scale absolute.
-        scale = max(r.abs().max().item(), 1.0)
-        errs[name] = (x - r).abs().max().item()
-        if not torch.allclose(x, r, rtol=1e-4, atol=1e-4 * scale):
-            raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: max err {errs[name]}")
-        if not torch.equal(x, y):
-            raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: two runs differ")
-    del got, ref, again
+    for key, ref in refs.items():
+        for name, x, r, y in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref,
+                                 again):
+            # float32 sums over B*T in another order than cuBLAS: 1e-4
+            # relative and 1e-4 of the gradient's scale absolute.
+            scale = max(r.abs().max().item(), 1.0)
+            errs[name if key == "plain" else f"{name}_{key}"] = (x - r).abs().max().item()
+            if not torch.allclose(x, r, rtol=1e-4, atol=1e-4 * scale):
+                raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name} against {key}: "
+                                     f"max err {(x - r).abs().max().item()}")
+            if not torch.equal(x, y):
+                raise AssertionError(f"din_attention_bwd {(b, t, d, h)} {name}: two runs differ")
+    del got, refs, again
     live_steps, live_rows = live_counts(hist)
     nbytes, flops = din_attention_bwd_cost(b, t, d, h, live_steps, live_rows)
-    t_bound, by = bound(nbytes, flops, TC_F32_FLOPS)
     nxt = cycling((hist, cand, go), (b * t * d + 2 * b * d) * 4)
 
     def call(fn):
@@ -502,15 +535,17 @@ def check_din_attention_bwd(b, t, d, h, iters):
            "flops": flops,
            "ms": timed(lambda: call(din_attention_bwd), iters),
            "plain_ms": timed(lambda: call(din_attention_bwd_plain), iters),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           # Every device operation of the call: the per-step kernel, its
-           # reduce, and the weight-gradient products (cuBLAS) with their
-           # allocations' and reductions' kernels.
+           **din_bound(nbytes, flops, d, h), "library_ms": None,
+           # Every device operation of the call: the kernel and its reduce,
+           # and on the tensor cores' path the weight-gradient products
+           # (cuBLAS) with their allocations' and reductions' kernels.
            "device_ms": device_ms(lambda: call(din_attention_bwd), iters),
            "kernel_device_ms": device_ms(lambda: call(din_attention_bwd), iters,
-                                         "din_attention_bwd"),
+                                         din_marker(d, h, True)),
            "plain_device_ms": device_ms(lambda: call(din_attention_bwd_plain), iters)}
     row["products_share"] = 1 - row["kernel_device_ms"] / row["device_ms"]
+    if narrow(d, h):
+        return row
     # The weight-gradient products alone on this call's per-step terms:
     # the wrapper's sliced products, one torch.mm each, and the products
     # in the other layout: on h and h*c apart (dapre read twice) where
@@ -921,6 +956,9 @@ def _cases() -> Dict[str, List[Callable[[], dict]]]:
             lambda: check_din_attention(WAVE_ROWS, 5, 10, 32, 200),
             # The trainer's forward at its batch.
             lambda: check_din_attention(TRAIN_BATCH, 5, 10, 32, 100),
+            # The benchmark's training cell (narrow), then a wide shape
+            # (the tensor cores).
+            lambda: check_din_attention(131072, 64, 10, 32, 20),
             lambda: check_din_attention(65536, 64, 128, 32, 10),
         ],
         "fm_cross_bwd": [
@@ -929,7 +967,9 @@ def _cases() -> Dict[str, List[Callable[[], dict]]]:
             lambda: check_fm_cross_bwd((262144, 5, 128), bf16, 20),
         ],
         "din_attention_bwd": [
+            lambda: check_din_attention_bwd(WAVE_ROWS, 5, 10, 32, 50),
             lambda: check_din_attention_bwd(TRAIN_BATCH, 5, 10, 32, 20),
+            lambda: check_din_attention_bwd(131072, 64, 10, 32, 10),
             lambda: check_din_attention_bwd(65536, 64, 128, 32, 3),
             # D=128, H=64: the shape whose block the first backward could not fit.
             lambda: check_din_attention_bwd(65536, 5, 128, 64, 10),
@@ -979,7 +1019,7 @@ def run(kernels=KERNELS, emit: Optional[Callable[[str, dict], None]] = None
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", action="append", choices=KERNELS,
-                    help="a kernel to time (repeatable); all eleven by default")
+                    help="a kernel to time (repeatable); all of them by default")
     ap.add_argument("--json-out", default="")
     args = ap.parse_args(argv)
     import torch

@@ -26,12 +26,16 @@ from sparrowrecsys_torch.ops.attention import (
     _tn,
     din_attention,
     din_attention_bwd,
+    din_attention_bwd_narrow_plain,
     din_attention_bwd_plain,
     din_attention_bwd_steps_plain,
     din_attention_plain,
     hx_alone,
+    narrow,
+    narrow_partial_width,
     plan,
     shared_floats,
+    unit_rows,
 )
 from sparrowrecsys_tpu.ops import attention as jax_attention
 
@@ -199,3 +203,45 @@ def test_plan_at_the_paths_shapes():
     assert plan(64, 128, 32, True) == (4, 1, 4, 1, 16, 1, True, False, 168496)
     assert plan(5, 128, 64)[:8] == (2, 6, 8, 1, 16, 1, True, False)
     assert plan(5, 512, 64)[:8] == (2, 6, 8, 1, 16, 4, False, False)
+
+
+@pytest.mark.parametrize("d,h,takes_narrow", [
+    (10, 32, True), (16, 32, True), (17, 32, False), (10, 64, False), (128, 32, False),
+])
+def test_the_path_rule_reads_d_and_h_alone(d, h, takes_narrow):
+    """D <= 16 and H <= 32 take the narrow kernels (csrc/din_narrow.cu);
+    every other shape the tensor cores' (csrc/din_attention.cu)."""
+    assert narrow(d, h) is takes_narrow
+
+
+@pytest.mark.parametrize("b,t,rows", [(131072, 64, 64), (65536, 5, 32), (8192, 5, 4),
+                                      (2, 9000, 1), (7, 5, 1), (1, 1, 1)])
+def test_units_follow_b_and_t_alone(b, t, rows):
+    """At most 4,096 steps a unit (one row where T is longer), and about
+    2,048 units or fewer where B is small; the partial is three planes of
+    [D + 1, 32] and db2, padded to 32 floats."""
+    assert unit_rows(b, t) == rows
+    assert -(-b // rows) <= 2048 or rows == 1
+    assert narrow_partial_width(10) == 1088 and narrow_partial_width(10) % 32 == 0
+
+
+@pytest.mark.parametrize("t", [5, 64])
+@pytest.mark.parametrize("rows", [None, 3])
+def test_narrow_backward_twin_matches_the_jax_vjp_of_unit(t, rows):
+    """The narrow backward's arithmetic and order of summation (the
+    candidate folded per row, R_b per row, per-unit partials reduced in the
+    kernel's fixed order) against `jax.vjp(_unit)` at D = 10, H = 32, with
+    masked steps (the second half of every row), an all-masked row and a
+    zero element that does not mask; units of one row (`unit_rows` at this
+    B) and of 3 rows (the last unit short)."""
+    b, d, h = 8, 10, 32
+    args, g = _inputs(b, t, d, h, seed=5)
+    _, vjp = jax.vjp(jax_attention._unit, *[jnp.asarray(a) for a in args])
+    ref = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a) for a in args]
+    got = din_attention_bwd_narrow_plain(*targs, torch.from_numpy(g), rows=rows)
+    _assert_grads([x.numpy() for x in got], ref)
+    assert not got[0][0].any() and not got[1][0].any()          # the all-masked row
+    assert not got[0][:, t // 2 + 1:].any()                      # masked steps
+    again = din_attention_bwd_narrow_plain(*targs, torch.from_numpy(g), rows=rows)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))

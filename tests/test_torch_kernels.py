@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from sparrowrecsys_torch.ops import kernels
 from sparrowrecsys_torch.ops.attention import (
     din_attention,
     din_attention_bwd,
+    din_attention_bwd_narrow_plain,
     din_attention_bwd_plain,
     din_attention_plain,
 )
@@ -46,7 +48,11 @@ from sparrowrecsys_torch.training.row_optim import (
     init_fused_row_adam,
 )
 
-from sparrowrecsys_torch.tools.kernel_bench import fm_bwd_tolerance, fm_cross_bwd_bf16_sum
+from sparrowrecsys_torch.tools.kernel_bench import (
+    fm_bwd_tolerance,
+    fm_cross_bwd_bf16_sum,
+    unit_preactivations,
+)
 
 
 @pytest.fixture
@@ -216,6 +222,75 @@ def test_din_attention_bwd_kernel_matches_plain(cuda_device, b, t, d, h):
     for x, y in zip(got, again):
         assert torch.equal(x, y)
     assert not got[0][0].any() and not got[1][0].any()   # a row with no history
+
+
+def _without_kinks(args):
+    """The inputs with every live step whose pre-activation lies within
+    1e-3 of PReLU's kink zeroed (made a masked step): there the kernel's
+    and the plain version's float32 sums may take different branches, a
+    true discontinuity of (1 - alpha) da and not an error (as
+    `kernel_bench.check_din_attention_bwd` does)."""
+    hist = args[0]
+    kink = (unit_preactivations(hist, args[1], args[2], args[3]).abs() < 1e-3).any(-1)
+    return [hist.masked_fill(kink[..., None], 0.0).contiguous()] + args[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(8192, 64), (8192, 5)])
+def test_din_narrow_kernels_match_the_plain_versions(cuda_device, b, t):
+    """The narrow kernels at the training cell's widths (T = 64) and
+    serving's (T = 5), D = 10, H = 32: the forward against the plain
+    forward (1e-5 of scale), the backward against the reference backward
+    and against the narrow twin (1e-4 of each gradient's scale), a masked
+    half of every row and a row with no history."""
+    args = _without_kinks(_din_inputs(b, t, 10, 32, cuda_device, seed=4))
+    go = torch.randn(b, 10, generator=torch.Generator(device="cpu").manual_seed(5)).to(cuda_device)
+    before = (din_attention.narrow_launches, din_attention_bwd.narrow_launches)
+    out = din_attention(*args)
+    got = din_attention_bwd(*args, go)
+    torch.cuda.synchronize()
+    assert (din_attention.narrow_launches, din_attention_bwd.narrow_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = din_attention_plain(*args)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * max(1.0, ref.abs().max().item()))
+    for plain in (din_attention_bwd_plain, din_attention_bwd_narrow_plain):
+        for name, x, r in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got,
+                              plain(*args, go)):
+            assert x.shape == r.shape, name
+            scale = max(r.abs().max().item(), 1.0)
+            torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4 * scale, msg=name)
+    assert not got[0][0].any() and not got[1][0].any()
+    assert not got[0][:, t // 2:].any()
+
+
+@pytest.mark.cuda
+def test_din_narrow_backward_is_deterministic(cuda_device):
+    """No float atomics: two backward calls at the cell's T agree bit for
+    bit in all seven gradients."""
+    args = _din_inputs(4096, 64, 10, 32, cuda_device, seed=6)
+    go = torch.randn(4096, 10, generator=torch.Generator(device="cpu").manual_seed(7)).to(
+        cuda_device)
+    first = din_attention_bwd(*args, go)
+    second = din_attention_bwd(*args, go)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,narrow", [(10, True), (128, False)])
+def test_launch_counters_show_the_path_taken(cuda_device, d, narrow):
+    """`kernels.launch_counters()`: D = 10 launches the narrow kernels,
+    D = 128 the tensor cores' (`din_attention` counts both designs)."""
+    counters = kernels.launch_counters()
+    names = ("din_attention", "din_attention_bwd", "din_attention.narrow",
+             "din_attention_bwd.narrow")
+    before = {k: counters[k].launches for k in names}
+    args = [a.requires_grad_() for a in _din_inputs(64, 5, d, 32, cuda_device)]
+    torch.autograd.grad(din_attention(*args), args, torch.ones(64, d, device=cuda_device))
+    torch.cuda.synchronize()
+    ran = {k: counters[k].launches - before[k] for k in names}
+    assert ran == {"din_attention": 1, "din_attention_bwd": 1,
+                   "din_attention.narrow": int(narrow), "din_attention_bwd.narrow": int(narrow)}
 
 
 @pytest.mark.cuda
