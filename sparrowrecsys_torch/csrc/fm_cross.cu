@@ -174,22 +174,26 @@ int launch_bwd(const void* x, const void* g, void* dx, int64_t b, int f, int d, 
 
 }  // namespace
 
-extern "C" int fm_cross_f32(const void* x, void* out, int64_t b, int64_t f, int64_t d,
-                            int64_t device, void* stream) {
-  return launch<float>(x, out, b, f, d, device, stream);
+// `a`: the launch's int64 scalars {B, F, D, device}, one array per launch
+// shape (ops/kernels.py::scalars).
+extern "C" int fm_cross_f32(const void* x, void* out, const int64_t* a, void* stream) {
+  if (a == nullptr) return cudaErrorInvalidValue;
+  return launch<float>(x, out, a[0], a[1], a[2], a[3], stream);
 }
 
-extern "C" int fm_cross_bf16(const void* x, void* out, int64_t b, int64_t f, int64_t d,
-                             int64_t device, void* stream) {
-  return launch<__nv_bfloat16>(x, out, b, f, d, device, stream);
+extern "C" int fm_cross_bf16(const void* x, void* out, const int64_t* a, void* stream) {
+  if (a == nullptr) return cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(x, out, a[0], a[1], a[2], a[3], stream);
 }
 
-extern "C" int fm_cross_bwd_f32(const void* x, const void* g, void* dx, int64_t b, int64_t f,
-                                int64_t d, int64_t device, void* stream) {
-  return launch_bwd<float>(x, g, dx, b, f, d, device, stream);
+extern "C" int fm_cross_bwd_f32(const void* x, const void* g, void* dx, const int64_t* a,
+                                void* stream) {
+  if (a == nullptr) return cudaErrorInvalidValue;
+  return launch_bwd<float>(x, g, dx, a[0], a[1], a[2], a[3], stream);
 }
 
-extern "C" int fm_cross_bwd_bf16(const void* x, const void* g, void* dx, int64_t b, int64_t f,
-                                 int64_t d, int64_t device, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, g, dx, b, f, d, device, stream);
+extern "C" int fm_cross_bwd_bf16(const void* x, const void* g, void* dx, const int64_t* a,
+                                 void* stream) {
+  if (a == nullptr) return cudaErrorInvalidValue;
+  return launch_bwd<__nv_bfloat16>(x, g, dx, a[0], a[1], a[2], a[3], stream);
 }

@@ -206,14 +206,12 @@ def plan(t: int, d: int, h: int, backward: bool = False) -> Plan:
     raise ValueError(f"din_attention: no launch plan fits T={t}, D={d}, H={h}")
 
 
-@functools.lru_cache(maxsize=1024)
-def _scalars(b: int, t: int, d: int, h: int, dev: int, backward: bool = False):
-    """The entry points' int64 scalars for one launch shape (`enum Scalar`
-    in the .cu): B, T, D, H, the plan, device. Cached on the shape, which
-    a trainer or a server repeats call after call."""
+def _tc_scalars(b: int, t: int, d: int, h: int, dev: int, backward: bool = False):
+    """The tensor-core entry points' int64 scalars (`enum Scalar` in the
+    .cu): B, T, D, H, the plan, device."""
     p = plan(t, d, h, backward)
-    return (ctypes.c_int64 * 13)(b, t, d, h, p.warps, p.rows, p.nt, p.chunks, p.slice_steps,
-                                 p.wc_shared, p.ct, p.shared_bytes, dev)
+    return kernels.scalars(b, t, d, h, p.warps, p.rows, p.nt, p.chunks, p.slice_steps,
+                           p.wc_shared, p.ct, p.shared_bytes, dev)
 
 
 def narrow(d: int, h: int) -> bool:
@@ -222,6 +220,7 @@ def narrow(d: int, h: int) -> bool:
     return d <= NARROW_D and h <= NARROW_H
 
 
+@functools.lru_cache(maxsize=1024)
 def unit_rows(b: int, t: int) -> int:
     """Rows a unit of the narrow backward, from B and T alone (so the
     order of every sum is fixed by the shape, whatever the grid)."""
@@ -448,11 +447,9 @@ def _check(name, hist, cand, w1, b1, alpha, w2, b2, *more):
     return dev, b, t, d, h
 
 
-@functools.lru_cache(maxsize=1024)
-def _narrow_scalars(b: int, t: int, d: int, h: int, dev: int):
-    """The narrow entry points' int64 scalars (`enum Scalar` in
-    csrc/din_narrow.cu): B, T, D, H, rows a unit, device."""
-    return (ctypes.c_int64 * 6)(b, t, d, h, unit_rows(b, t), dev)
+_FWD, _BWD_GRID, _BWD, _NARROW_FWD, _NARROW_BWD = (
+    kernels.TABLE[n] for n in ("din_attention", "din_attention_bwd.grid", "din_attention_bwd",
+                               "din_attention.narrow", "din_attention_bwd.narrow"))
 
 
 def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
@@ -460,18 +457,12 @@ def _din_attention_kernel(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     if b * t * d == 0:
         return hist.new_zeros((b, d))
     out = hist.new_empty((b, d))
-    lib = kernels.library()
     ptrs = (hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), out.data_ptr())
     if narrow(d, h):
-        err = lib.din_narrow_fwd_f32(*ptrs, _narrow_scalars(b, t, d, h, dev),
-                                     kernels.stream_of(dev))
-        din_attention.narrow_launches += 1
+        _NARROW_FWD(dev, *ptrs, kernels.scalars(b, t, d, h, unit_rows(b, t), dev))
     else:
-        err = lib.din_attention_f32(*ptrs, _scalars(b, t, d, h, dev), kernels.stream_of(dev))
-    if err:
-        kernels.check(lib, err, "din_attention")
-    din_attention.launches += 1
+        _FWD(dev, *ptrs, _tc_scalars(b, t, d, h, dev))
     return out
 
 
@@ -489,28 +480,21 @@ def _din_attention_bwd_steps(hist, cand, w1, b1, alpha, w2, b2, g):
         z = hist.new_zeros
         return (z(hist.shape), z(cand.shape), z((b * t, h)), z((b * t, hx_width)), z((b, h)),
                 z(3 * h + 1))
-    scalars = _scalars(b, t, d, h, dev, True)
-    lib = kernels.library()
+    scalars = _tc_scalars(b, t, d, h, dev, True)
     key = (b, t, d, h, dev)
     grid = _bwd_grids.get(key)
     if grid is None:
         got = ctypes.c_int64(0)
-        err = lib.din_attention_bwd_grid(scalars, ctypes.addressof(got))
-        kernels.check(lib, err, "din_attention_bwd")
+        _BWD_GRID(scalars, ctypes.addressof(got))
         grid = _bwd_grids[key] = got.value
     new = hist.new_empty
     dh, dc, dsum, small = new(hist.shape), new(cand.shape), new((b, h)), new(3 * h + 1)
     dapre, hx = new((b * t, h)), new((b * t, hx_width))
     partial = new((grid * plan(t, d, h, True).warps, 3 * h + 1))
-    err = lib.din_attention_bwd_f32(
-        hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-        dapre.data_ptr(), hx.data_ptr(), dsum.data_ptr(), partial.data_ptr(), small.data_ptr(),
-        scalars, grid, kernels.stream_of(dev),
-    )
-    if err:
-        kernels.check(lib, err, "din_attention_bwd")
-    din_attention_bwd.launches += 1
+    _BWD(dev, hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
+         w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+         dapre.data_ptr(), hx.data_ptr(), dsum.data_ptr(), partial.data_ptr(), small.data_ptr(),
+         scalars, grid)
     return dh, dc, dapre, hx, dsum, small
 
 
@@ -525,18 +509,12 @@ def _din_narrow_bwd(hist, cand, w1, b1, alpha, w2, b2, g):
     else:
         new = hist.new_empty
         dh, dc, grads = new(hist.shape), new(cand.shape), new(n + 3 * h + 1)
-        partial = new((-(-b // unit_rows(b, t)), narrow_partial_width(d)))
-        lib = kernels.library()
-        err = lib.din_narrow_bwd_f32(
-            hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(), alpha.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-            partial.data_ptr(), grads.data_ptr(), _narrow_scalars(b, t, d, h, dev),
-            kernels.stream_of(dev),
-        )
-        if err:
-            kernels.check(lib, err, "din_attention_bwd")
-        din_attention_bwd.launches += 1
-        din_attention_bwd.narrow_launches += 1
+        rows = unit_rows(b, t)
+        partial = new((-(-b // rows), narrow_partial_width(d)))
+        _NARROW_BWD(dev, hist.data_ptr(), cand.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    alpha.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dh.data_ptr(),
+                    dc.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+                    kernels.scalars(b, t, d, h, rows, dev))
     return (dh, dc, grads[:n].view(4 * d, h), grads[n:n + h], grads[n + h:n + 2 * h],
             grads[n + 2 * h:n + 3 * h, None], grads[n + 3 * h:])
 
@@ -575,27 +553,3 @@ def din_attention(hist, cand, w1, b1, alpha, w2, b2) -> torch.Tensor:
     w2 [H, 1], b2 [1] -> [B, D] float32."""
     hist, cand = _as_f32(hist, cand)
     return _DINAttention.apply(hist, cand, w1, b1, alpha, w2, b2)
-
-
-#: Kernel launches since the last reset (plain integers on the wrappers):
-#: `launches` counts both designs, `narrow_launches` the narrow kernels'.
-din_attention.launches = 0
-din_attention_bwd.launches = 0
-din_attention.narrow_launches = 0
-din_attention_bwd.narrow_launches = 0
-
-
-class NarrowCount:
-    """A wrapper's `narrow_launches` read and set as `launches`, the name
-    `kernels.launch_counters()` gives every counter."""
-
-    def __init__(self, fn):
-        self.fn = fn
-
-    @property
-    def launches(self) -> int:
-        return self.fn.narrow_launches
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        self.fn.narrow_launches = n

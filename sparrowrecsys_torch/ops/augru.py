@@ -40,8 +40,6 @@ keeping them. The two are exclusive. Neither changes the kernels' path.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -353,13 +351,6 @@ def augru_scan_bwd_plain(u_rz, u_h, x_all, att, hs, dh_fin):
     return dx, ops, datt, dh
 
 
-@functools.lru_cache(maxsize=64)
-def _scalars(b: int, t: int, h: int, dev: int):
-    """The entry points' int64 scalars {B, T, H, device} for one shape,
-    which a trainer repeats step after step."""
-    return (ctypes.c_int64 * 4)(b, t, h, dev)
-
-
 def _checked(name: str, x: torch.Tensor, mask: Optional[torch.Tensor],
              *shaped: Tuple[torch.Tensor, str]) -> Tuple[int, int, int, int]:
     """(B, T, H, device) of a launch on x [B, T, 3H]; raises unless H fits,
@@ -385,11 +376,9 @@ def _checked(name: str, x: torch.Tensor, mask: Optional[torch.Tensor],
     return b, t, h, dev
 
 
-def _call(name: str, entry: str, dev: int, *args) -> None:
-    lib = kernels.library()
-    err = getattr(lib, entry)(*args, kernels.stream_of(dev))
-    if err:
-        kernels.check(lib, err, name)
+_GRU_FWD, _GRU_BWD, _AUGRU_FWD, _AUGRU_BWD = (
+    kernels.TABLE[n] for n in ("gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd",
+                               "augru_scan_bwd"))
 
 
 def gru_scan_fwd(recurrent: torch.Tensor, gx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -401,9 +390,8 @@ def gru_scan_fwd(recurrent: torch.Tensor, gx: torch.Tensor, mask: torch.Tensor) 
     b, t, h, dev = _checked("gru_scan_fwd", gx, mask, (recurrent, "h,3h"))
     hs = gx.new_empty(b, t, h)
     if b and t:
-        _call("gru_scan_fwd", "gru_scan_fwd_f32", dev, gx.data_ptr(), recurrent.data_ptr(),
-              mask.data_ptr(), hs.data_ptr(), _scalars(b, t, h, dev))
-        gru_scan_fwd.launches += 1
+        _GRU_FWD(dev, gx.data_ptr(), recurrent.data_ptr(), mask.data_ptr(), hs.data_ptr(),
+                 kernels.scalars(b, t, h, dev))
     return hs
 
 
@@ -418,10 +406,9 @@ def gru_scan_bwd(recurrent, gx, mask, hs, dhs):
                           (dhs, "b,t,h"))
     dgx, ops, dh0 = gx.new_empty(b, t, 3 * h), gx.new_empty(b, t, 2 * h), gx.new_zeros(b, h)
     if b and t:
-        _call("gru_scan_bwd", "gru_scan_bwd_f32", dev, gx.data_ptr(), recurrent.data_ptr(),
-              mask.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(), ops.data_ptr(),
-              dh0.data_ptr(), _scalars(b, t, h, dev))
-        gru_scan_bwd.launches += 1
+        _GRU_BWD(dev, gx.data_ptr(), recurrent.data_ptr(), mask.data_ptr(), hs.data_ptr(),
+                 dhs.data_ptr(), dgx.data_ptr(), ops.data_ptr(), dh0.data_ptr(),
+                 kernels.scalars(b, t, h, dev))
     return dgx, ops, dh0
 
 
@@ -436,10 +423,8 @@ def augru_scan_fwd(u_rz, u_h, x_all, att):
                           (att, "b,t"))
     hs, hfin = x_all.new_empty(b, t, h), x_all.new_zeros(b, h)
     if b and t:
-        _call("augru_scan_fwd", "augru_scan_fwd_f32", dev, x_all.data_ptr(), u_rz.data_ptr(),
-              u_h.data_ptr(), att.data_ptr(), hs.data_ptr(), hfin.data_ptr(),
-              _scalars(b, t, h, dev))
-        augru_scan_fwd.launches += 1
+        _AUGRU_FWD(dev, x_all.data_ptr(), u_rz.data_ptr(), u_h.data_ptr(), att.data_ptr(),
+                   hs.data_ptr(), hfin.data_ptr(), kernels.scalars(b, t, h, dev))
     return hfin, hs
 
 
@@ -455,18 +440,10 @@ def augru_scan_bwd(u_rz, u_h, x_all, att, hs, dh_fin):
     dx, ops = x_all.new_empty(b, t, 3 * h), x_all.new_empty(b, t, 2 * h)
     datt, dh0 = x_all.new_zeros(b, t), dh_fin.clone()
     if b and t:
-        _call("augru_scan_bwd", "augru_scan_bwd_f32", dev, x_all.data_ptr(), u_rz.data_ptr(),
-              u_h.data_ptr(), att.data_ptr(), hs.data_ptr(), dh_fin.data_ptr(), dx.data_ptr(),
-              ops.data_ptr(), datt.data_ptr(), dh0.data_ptr(), _scalars(b, t, h, dev))
-        augru_scan_bwd.launches += 1
+        _AUGRU_BWD(dev, x_all.data_ptr(), u_rz.data_ptr(), u_h.data_ptr(), att.data_ptr(),
+                   hs.data_ptr(), dh_fin.data_ptr(), dx.data_ptr(), ops.data_ptr(),
+                   datt.data_ptr(), dh0.data_ptr(), kernels.scalars(b, t, h, dev))
     return dx, ops, datt, dh0
-
-
-#: Kernel launches since the last reset, one a call.
-gru_scan_fwd.launches = 0
-gru_scan_bwd.launches = 0
-augru_scan_fwd.launches = 0
-augru_scan_bwd.launches = 0
 
 
 def _weight_grads(ops: torch.Tensor, dpre: torch.Tensor) -> torch.Tensor:

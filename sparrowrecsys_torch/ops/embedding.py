@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import ctypes
 import functools
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -217,14 +216,13 @@ def bwd_plan(n: int, v: int, d: int, id_bytes: int, sms: int = H100_SMS) -> BwdP
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_launch(n: int, v: int, d: int, lo: int, id_bytes: int, dev: int):
-    """(plan, the entry point's int64 scalars) for one launch shape, which
-    a trainer repeats step after step."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = bwd_plan(n, v, d, id_bytes, sms)
-    scalars = (ctypes.c_int64 * 11)(n, v, d, lo, id_bytes, plan.copies, plan.warps_per_copy,
-                                    plan.tile_rows, plan.rows_per_block, plan.grid, dev)
-    return plan, scalars
+def _bwd_plan_on(n: int, v: int, d: int, id_bytes: int, dev: int) -> BwdPlan:
+    """`bwd_plan` on card `dev` for one launch shape, which a trainer
+    repeats step after step."""
+    return bwd_plan(n, v, d, id_bytes, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+_BWD = kernels.TABLE["embedding_bwd"]
 
 
 def embedding_bwd_plain(g: torch.Tensor, ids: torch.Tensor, v: int, lo: int,
@@ -266,21 +264,14 @@ def embedding_bwd(g: torch.Tensor, ids: torch.Tensor, v: int, lo: int) -> torch.
     if g.numel() != n * d or lo not in (0, 1):
         raise ValueError(f"embedding_bwd: g {tuple(g.shape)} for ids {tuple(ids.shape)}, "
                          f"lo {lo}")
-    plan, scalars = _bwd_launch(n, v, d, lo, ids.element_size(), dev)
+    id_bytes = ids.element_size()
+    plan = _bwd_plan_on(n, v, d, id_bytes, dev)
     partials = torch.empty(plan.grid * v * d, dtype=torch.float32, device=g.device)
     out = torch.empty((v, d), dtype=torch.float32, device=g.device)
-    lib = kernels.library()
-    err = lib.embedding_bwd_f32(g.data_ptr(), ids.data_ptr(), partials.data_ptr(),
-                                out.data_ptr(), scalars, kernels.stream_of(dev))
-    if err:
-        kernels.check(lib, err, "embedding_bwd")
-    embedding_bwd.launches += 1
+    _BWD(dev, g.data_ptr(), ids.data_ptr(), partials.data_ptr(), out.data_ptr(),
+         kernels.scalars(n, v, d, lo, id_bytes, plan.copies, plan.warps_per_copy, plan.tile_rows,
+                         plan.rows_per_block, plan.grid, dev))
     return out
-
-
-#: Kernel calls since the last reset (each call is two launches: the
-#: blocks' partials and their reduce).
-embedding_bwd.launches = 0
 
 
 class _MaskedLookup(torch.autograd.Function):

@@ -48,17 +48,19 @@ def _check(name: str, fields: torch.Tensor, *others: torch.Tensor) -> int:
     return dev
 
 
+_FWD = {torch.float32: kernels.TABLE["fm_cross"],
+        torch.bfloat16: kernels.TABLE["fm_cross.bf16"]}
+_BWD = {torch.float32: kernels.TABLE["fm_cross_bwd"],
+        torch.bfloat16: kernels.TABLE["fm_cross_bwd.bf16"]}
+
+
 def _fm_cross_kernel(fields: torch.Tensor) -> torch.Tensor:
     dev = _check("fm_cross", fields)
     b, f, d = fields.shape
     out = torch.empty((b, d), dtype=fields.dtype, device=fields.device)
     if out.numel() == 0:
         return out
-    lib = kernels.library()
-    fn = lib.fm_cross_f32 if fields.dtype == torch.float32 else lib.fm_cross_bf16
-    err = fn(fields.data_ptr(), out.data_ptr(), b, f, d, dev, kernels.stream_of(dev))
-    kernels.check(lib, err, "fm_cross")
-    fm_cross.launches += 1
+    _FWD[fields.dtype](dev, fields.data_ptr(), out.data_ptr(), kernels.scalars(b, f, d, dev))
     return out
 
 
@@ -73,12 +75,8 @@ def fm_cross_bwd(fields: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dx = torch.empty_like(fields)
     if dx.numel() == 0:
         return dx
-    lib = kernels.library()
-    fn = lib.fm_cross_bwd_f32 if fields.dtype == torch.float32 else lib.fm_cross_bwd_bf16
-    err = fn(fields.data_ptr(), g.data_ptr(), dx.data_ptr(), b, f, d, dev,
-             kernels.stream_of(dev))
-    kernels.check(lib, err, "fm_cross_bwd")
-    fm_cross_bwd.launches += 1
+    _BWD[fields.dtype](dev, fields.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                       kernels.scalars(b, f, d, dev))
     return dx
 
 
@@ -99,8 +97,3 @@ class _FMCross(torch.autograd.Function):
 def fm_cross(fields: torch.Tensor) -> torch.Tensor:
     """[B, F, D] float32 or bfloat16 -> [B, D] in the input dtype."""
     return _FMCross.apply(fields)
-
-
-#: Kernel launches since the last reset (plain integers on the wrappers).
-fm_cross.launches = 0
-fm_cross_bwd.launches = 0

@@ -7,6 +7,13 @@ library is cached under `sparrowrecsys_torch/_build/` by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one
 is not.
 
+Every C entry point is declared once, here, in `TABLE` (by name): a
+`Kernel` (launched as `kernel(dev, *args)` on the current stream,
+counted) or a `Query` (launches nothing). An op module binds its
+declarations from `TABLE` at import and launches through them; `scalars`
+gives a launch's int64 scalars as one cached array; `launch_counters`
+gives every kernel by name. This module imports no op module.
+
 Nothing here runs at import time: the CPU tests import every module on
 a machine without `nvcc`.
 """
@@ -14,6 +21,7 @@ a machine without `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -35,49 +43,125 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-#: C entry points: name -> number of arguments. Each returns a cudaError_t
-#: as int. Every argument is pointer-sized (a pointer, or an int64_t on the
-#: C side) and declared `c_void_p`: ctypes converts a Python int to
-#: `c_void_p` by a fast path, and to `c_int` or `c_int64` through a slower
-#: generic one, which a launch would pay once per argument.
-SIGNATURES = {
-    # x, out, B, F, D, device, stream
-    "fm_cross_f32": 7,
-    "fm_cross_bf16": 7,
-    # x, g, dx, B, F, D, device, stream
-    "fm_cross_bwd_f32": 8,
-    "fm_cross_bwd_bf16": 8,
+
+class Entry:
+    """One C entry point of the library, declared once in `TABLE`: `name`
+    (its counter's name where it launches), `entry` (the C function) and
+    `n_args` (its C parameters). Each returns a cudaError_t as int.
+
+    On its first call after the library loads it resolves its ctypes
+    function, once. Every argument is pointer-sized (a pointer, or an
+    int64_t on the C side) and declared `c_void_p`: ctypes converts a
+    Python int to `c_void_p` by a fast path, and to `c_int` or `c_int64`
+    through a slower generic one, which a launch would pay once per
+    argument."""
+
+    __slots__ = ("name", "entry", "n_args", "_fn")
+
+    def __init__(self, name: str, entry: str, n_args: int):
+        self.name, self.entry, self.n_args = name, entry, n_args
+        self._fn = None
+
+    def function(self):
+        """The ctypes function, its argument types set (the library is
+        loaded, and built, on first use)."""
+        if self._fn is None:
+            fn = getattr(library(), self.entry)
+            fn.argtypes = [ctypes.c_void_p] * self.n_args
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+class Kernel(Entry):
+    """An entry point that launches on a stream, its last parameter.
+    `kernel(dev, *args)` launches it on PyTorch's current stream of device
+    index `dev`, raises on a CUDA error and adds one to `launches` (the
+    calls since it was last set to 0; `mfu_zoo` and `chip_smoke.py` set
+    it)."""
+
+    __slots__ = ("launches", "_stream")
+
+    def __init__(self, name: str, entry: str, n_args: int):
+        super().__init__(name, entry, n_args)
+        self.launches = 0
+
+    def function(self):
+        fn = super().function()
+        # The raw handle of the current stream: `torch.cuda.current_stream()`
+        # builds a Python `Stream` object on every call; this reads the
+        # handle alone (the call PyTorch's own generated kernels launch
+        # with). A CPU build of torch has no such function.
+        self._stream = torch._C._cuda_getCurrentRawStream
+        return fn
+
+    def stream(self, dev: int) -> int:
+        """The raw handle of the stream a call on device index `dev`
+        launches on, for a tool's raw call of `function()`."""
+        self._fn or self.function()
+        return self._stream(dev)
+
+    def __call__(self, dev: int, *args) -> None:
+        err = (self._fn or self.function())(*args, self._stream(dev))
+        if err:
+            check(err, self.name)
+        self.launches += 1
+
+
+class Query(Entry):
+    """An entry point that launches nothing and takes no stream, called as
+    `query(*args)`; not a launch, so not counted."""
+
+    __slots__ = ()
+
+    def __call__(self, *args) -> None:
+        err = (self._fn or self.function())(*args)
+        if err:
+            check(err, self.name)
+
+
+#: Every C entry point of `csrc/*.cu` but the library's own
+#: `sparrow_error_string`, by name. The `int64 scalars` argument is one
+#: `scalars(...)` array.
+TABLE = {e.name: e for e in (
+    # x, out, int64 scalars (B, F, D, device), stream
+    Kernel("fm_cross", "fm_cross_f32", 4),
+    Kernel("fm_cross.bf16", "fm_cross_bf16", 4),
+    # x, g, dx, scalars, stream
+    Kernel("fm_cross_bwd", "fm_cross_bwd_f32", 5),
+    Kernel("fm_cross_bwd.bf16", "fm_cross_bwd_bf16", 5),
     # hist, cand, w1, b1, alpha, w2, b2, out, int64 scalars (B, T, D, H,
     # the plan of ops/attention.py::plan, device), stream
-    "din_attention_f32": 10,
+    Kernel("din_attention", "din_attention_f32", 10),
     # the backward's scalars, grid (an int64_t written back)
-    "din_attention_bwd_grid": 2,
+    Query("din_attention_bwd.grid", "din_attention_bwd_grid", 2),
     # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, dapre, hx, dsum,
     # scratch, small sums, scalars, grid, stream
-    "din_attention_bwd_f32": 18,
+    Kernel("din_attention_bwd", "din_attention_bwd_f32", 18),
     # hist, cand, w1, b1, alpha, w2, b2, out, int64 scalars (B, T, D, H,
     # rows a unit of ops/attention.py::unit_rows, device), stream
-    "din_narrow_fwd_f32": 10,
+    Kernel("din_attention.narrow", "din_narrow_fwd_f32", 10),
     # hist, cand, w1, b1, alpha, w2, b2, g, dh, dc, scratch, grads,
     # scalars, stream
-    "din_narrow_bwd_f32": 14,
+    Kernel("din_attention_bwd.narrow", "din_narrow_bwd_f32", 14),
     # table, ids, out, int64 scalars (V, U, row bytes, the plan of
     # ops/rowio.py::launch_plan, device), stream
-    "rows_gather": 5,
+    Kernel("rows_gather", "rows_gather", 5),
     # table, ids, rows, int64 scalars, stream
-    "rows_write": 5,
+    Kernel("rows_write", "rows_write", 5),
     # g, ids, partials, grad, int64 scalars (N, V, D, lo, id bytes, the
-    # plan of ops/embedding.py::bwd_plan, device), stream
-    "embedding_bwd_f32": 6,
+    # plan of ops/embedding.py::bwd_plan, device), stream; a call is two
+    # launches (the blocks' partials and their reduce), counted as one
+    Kernel("embedding_bwd", "embedding_bwd_f32", 6),
     # gx, u, mask, hs, int64 scalars (B, T, H, device), stream
-    "gru_scan_fwd_f32": 6,
+    Kernel("gru_scan_fwd", "gru_scan_fwd_f32", 6),
     # gx, u, mask, hs, dhs, dgx, ops, dh0, scalars, stream
-    "gru_scan_bwd_f32": 10,
+    Kernel("gru_scan_bwd", "gru_scan_bwd_f32", 10),
     # x, u_rz, u_h, att, hs, hfin, scalars, stream
-    "augru_scan_fwd_f32": 8,
+    Kernel("augru_scan_fwd", "augru_scan_fwd_f32", 8),
     # x, u_rz, u_h, att, hs, dhfin, dx, ops, datt, dh0, scalars, stream
-    "augru_scan_bwd_f32": 12,
-}
+    Kernel("augru_scan_bwd", "augru_scan_bwd_f32", 12),
+)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -155,10 +239,6 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for name, n_args in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * n_args
-                fn.restype = ctypes.c_int
             lib.sparrow_error_string.argtypes = [ctypes.c_int]
             lib.sparrow_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -166,36 +246,34 @@ def library() -> ctypes.CDLL:
 
 
 def launch_counters() -> dict:
-    """The kernels' wrappers by name; each carries `launches`, the kernel
-    calls since it was last set to 0. `din_attention` and
-    `din_attention_bwd` count both DIN designs; `din_attention.narrow` and
-    `din_attention_bwd.narrow` the narrow kernels alone."""
-    from sparrowrecsys_torch.ops import attention, augru, embedding, fm, rowio
-
-    return {"fm_cross": fm.fm_cross, "fm_cross_bwd": fm.fm_cross_bwd,
-            "din_attention": attention.din_attention,
-            "din_attention_bwd": attention.din_attention_bwd,
-            "din_attention.narrow": attention.NarrowCount(attention.din_attention),
-            "din_attention_bwd.narrow": attention.NarrowCount(attention.din_attention_bwd),
-            "rows_gather": rowio.rows_gather, "rows_write": rowio.rows_write,
-            "embedding_bwd": embedding.embedding_bwd,
-            "gru_scan_fwd": augru.gru_scan_fwd, "gru_scan_bwd": augru.gru_scan_bwd,
-            "augru_scan_fwd": augru.augru_scan_fwd, "augru_scan_bwd": augru.augru_scan_bwd}
+    """Every kernel of `TABLE` by name, each with `launches`, the calls of
+    its own C entry point since it was last set to 0 (the narrow DIN
+    kernels under `din_attention.narrow` and `din_attention_bwd.narrow`,
+    bfloat16 FM under `fm_cross.bf16` and `fm_cross_bwd.bf16`)."""
+    return {n: e for n, e in TABLE.items() if isinstance(e, Kernel)}
 
 
-def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+def launch_counts() -> dict:
+    """{name: launches} of `launch_counters()`, a snapshot: the counters
+    are live, so a test or a tool compares two snapshots, taken before
+    and after what it runs."""
+    return {n: k.launches for n, k in launch_counters().items()}
+
+
+@functools.lru_cache(maxsize=4096)
+def scalars(*ints: int):
+    """A launch's int64 scalars as one `ctypes.c_int64` array, cached on
+    the values, which a trainer or a server repeats call after call: a
+    call then looks the array up, and ctypes converts one argument, not
+    one an integer. The C side only reads it."""
+    return (ctypes.c_int64 * len(ints))(*ints)
+
+
+def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
-        msg = lib.sparrow_error_string(err).decode()
+        msg = library().sparrow_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
-
-
-def stream_of(device: int) -> int:
-    """The raw handle of PyTorch's current CUDA stream on `device` (an
-    index), for a C entry point. `torch.cuda.current_stream()` builds a
-    Python `Stream` object on every call; this reads the handle alone
-    (the call PyTorch's own generated kernels launch with)."""
-    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtypes=(torch.float32,)) -> int:

@@ -24,13 +24,13 @@ widest words the row width and pointers allow, several rows in flight
 
 The kernels take a few microseconds of device time, so the host's work
 per call sets their rate: each wrapper reads every tensor attribute it
-checks once, looks up its launch's scalars in a cache (`_scalars`), and
-reads the raw stream handle (`kernels.stream_of`).
+checks once, looks up its launch's plan and scalars in caches (`_plan`,
+`kernels.scalars`), and launches through its declaration in
+`ops/kernels.py`.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -67,6 +67,7 @@ def lanes_for(words: int) -> int:
     return 1 << (min(words, 32) - 1).bit_length()
 
 
+@functools.lru_cache(maxsize=1024)
 def _plan(row_bytes: int, misalign: int, u: int) -> Plan:
     for word in WORDS:
         if row_bytes % word == 0 and misalign % word == 0:
@@ -87,13 +88,7 @@ def launch_plan(row_bytes: int, ptr_a: int, ptr_b: int, u: int) -> Plan:
     return _plan(row_bytes, (ptr_a | ptr_b) & 15, u)
 
 
-@functools.lru_cache(maxsize=1024)
-def _scalars(row_bytes: int, misalign: int, u: int, v: int, dev: int):
-    """The entry points' int64 scalars for one launch shape: V, U, row
-    bytes, the plan, device. Cached on the shape, the pointers' alignment
-    and the device, which a trainer repeats step after step: a call then
-    looks the array up and ctypes converts five arguments, not eleven."""
-    return (ctypes.c_int64 * 7)(v, u, row_bytes, *_plan(row_bytes, misalign, u), dev)
+_GATHER, _WRITE = kernels.TABLE["rows_gather"], kernels.TABLE["rows_write"]
 
 
 def rows_gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -144,12 +139,8 @@ def rows_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if u and d:
         tp, op = table.data_ptr(), out.data_ptr()
         row_bytes = d * table.itemsize
-        scalars = _scalars(row_bytes, (tp | op) & 15, u, v, dev)
-        lib = kernels.library()
-        err = lib.rows_gather(tp, ids.data_ptr(), op, scalars, kernels.stream_of(dev))
-        if err:
-            kernels.check(lib, err, "rows_gather")
-        rows_gather.launches += 1
+        _GATHER(dev, tp, ids.data_ptr(), op,
+                kernels.scalars(v, u, row_bytes, *_plan(row_bytes, (tp | op) & 15, u), dev))
     return out
 
 
@@ -163,15 +154,6 @@ def rows_write(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> to
     if u and d:
         tp, rp = table.data_ptr(), rows.data_ptr()
         row_bytes = d * table.itemsize
-        scalars = _scalars(row_bytes, (tp | rp) & 15, u, v, dev)
-        lib = kernels.library()
-        err = lib.rows_write(tp, ids.data_ptr(), rp, scalars, kernels.stream_of(dev))
-        if err:
-            kernels.check(lib, err, "rows_write")
-        rows_write.launches += 1
+        _WRITE(dev, tp, ids.data_ptr(), rp,
+               kernels.scalars(v, u, row_bytes, *_plan(row_bytes, (tp | rp) & 15, u), dev))
     return table
-
-
-#: Kernel launches since the last reset (plain integers on the wrappers).
-rows_gather.launches = 0
-rows_write.launches = 0

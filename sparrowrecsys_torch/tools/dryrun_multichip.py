@@ -39,10 +39,10 @@ LOSS_TOL, AUC_TOL, PARAM_TOL = 2e-3, 5e-3, 1e-3
 
 
 def kernel_launches() -> Dict[str, int]:
-    """The seven kernels' launch counts (each wrapper counts its launches)."""
-    from sparrowrecsys_torch.ops.kernels import launch_counters
+    """Every kernel's launch count (`kernels.launch_counts()`)."""
+    from sparrowrecsys_torch.ops.kernels import launch_counts
 
-    return {k: fn.launches for k, fn in launch_counters().items()}
+    return launch_counts()
 
 
 def case_data(case: Dict[str, Any]):
@@ -190,7 +190,7 @@ CASES = {"fit": fit_case, "lookup": lookup_case, "topk": topk_case, "split": spl
 def mesh_worker(plan, job, device: Optional[str] = "cpu") -> Dict[str, Any]:
     """Run each (name, kind, case) of `job` on this rank. Returns
     {name: result} (fits: only rank 0 keeps the params), the launches of
-    the seven kernels in the whole job, and this rank's coordinates."""
+    every kernel in the whole job, and this rank's coordinates."""
     from sparrowrecsys_torch.ops import kernels
 
     if device is not None and torch.device(device).type == "cuda":

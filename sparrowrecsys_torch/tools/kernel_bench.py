@@ -4,7 +4,7 @@ the TPU; DIN's pair in two designs, narrow and tensor-core), the
 small-table embedding backward and DIEN's four scans.
 
     python -m sparrowrecsys_torch.tools.kernel_bench [--kernel NAME ...]
-        [--json-out PATH]
+        [--host-path] [--json-out PATH]
 
 Each kernel (fm_cross and din_attention with their backwards, rows_gather,
 rows_write, embedding_bwd, the GRU's and AUGRU's scans forward and backward)
@@ -20,8 +20,9 @@ version's ms and, where one PyTorch call computes the same function
 the mask's `where` and `embedding_dense_backward`), its ms and device ms. Each timed call
 reads inputs that are not in L2 (`cycling`, `row_sets`). The row kernels
 run at the six row calls the DeepFMv2 trainer makes a step, kernel and
-library call in turns; `host_path` times their wrappers' host path part
-by part. The DIN backward's device time is the whole call's: its kernel
+library call in turns; `host_path` (alone: `--host-path`) times the host
+path of every wrapper the benchmark's cells launch, of the tensor-core
+DIN pair and of the row wrappers, whole, and the row wrappers' part by part. The DIN backward's device time is the whole call's: its kernel
 and reduce, and on the tensor cores' path the weight-gradient products
 (cuBLAS), with the kernel's own time and the products alone. The DIN rows
 run both designs: the narrow one (D <= 16, H <= 32) at the serving, T = 5
@@ -245,51 +246,128 @@ def host_us(fn, iters: int = 2000) -> float:
     return us
 
 
+def _launches(name: str) -> int:
+    """A kernel's launches so far (`kernels.launch_counters()`)."""
+    from sparrowrecsys_torch.ops.kernels import launch_counters
+
+    return launch_counters()[name].launches
+
+
+#: `host_path`'s calls a round for each wrapper: many for the row kernels,
+#: which run in about the time their launch takes; few for the cells'
+#: kernels (0.3-2 ms of device time each) and the wide DIN pair, so the
+#: launch queue stays far from full and the host's time is read, not the
+#: device's.
+HOST_ITERS = {"rows_gather": 2000, "rows_write": 2000, "din_attention.narrow": 300,
+              "din_attention_bwd.narrow": 100, "din_attention": 100, "din_attention_bwd": 100,
+              "embedding_bwd": 200, "gru_scan_fwd": 100, "gru_scan_bwd": 100,
+              "augru_scan_fwd": 100, "augru_scan_bwd": 100}
+#: `host_path`'s rounds, taken in turns.
+HOST_ROUNDS = 5
+
+
 def host_path():
-    """The row wrappers' host time per call, whole and part by part, at
-    the trainer's shape (DeepFMv2's fused user buffer [30001, 30] f32, the
-    touched ids of one synthetic batch as the row-Adam routes them): the
-    whole call, the input checks (`rowio._check`), the lookup of the
-    launch's scalars, a ctypes call of each entry point with the real
+    """Host microseconds per call of the wrappers, host clock.
+
+    `calls`: the whole call of every wrapper the benchmark's cells launch,
+    at the cells' shapes (the narrow DIN forward and backward at [131072,
+    64, 10], H = 32; `embedding_bwd` on DIN's movie lookup, [131072, 65]
+    Zipf ids into the 1,001 x 10 table; the four scans at [131072, 64,
+    10]), of the tensor-core DIN forward and backward kernels' wrappers at
+    [8192, 64, 128], H = 32, and of the row wrappers at the trainer's
+    (DeepFMv2's fused user buffer [30001, 30] f32, the touched ids of one
+    synthetic batch as the row-Adam routes them): `HOST_ROUNDS` rounds in
+    turns (`in_turns`), each `HOST_ITERS` calls, as (median, least, most)
+    over the rounds.
+    `rows`: the row wrappers part by part, the input checks
+    (`rowio._check`) and a ctypes call of each entry point with the real
     pointers and the scalars of U = 0 (the C side returns before it reads
-    the device or launches) and with the real scalars (the launch
-    alone), and the PyTorch calls computing the same functions. In us,
-    host clock."""
+    the device or launches) and with the real scalars (the launch alone).
+    `library_calls`: the PyTorch calls computing the row functions."""
+    import ctypes
+
     import torch
 
     from sparrowrecsys_torch.data.synthetic import synthetic_ctr_dataset
-    from sparrowrecsys_torch.ops import kernels, rowio
+    from sparrowrecsys_torch.ops import attention, augru, embedding, kernels, rowio
     from sparrowrecsys_torch.training.row_optim import _touched_rows
 
+    gen = torch.Generator(device="cuda").manual_seed(13)
     users = torch.from_numpy(synthetic_ctr_dataset(TRAIN_BATCH, seed=11).features["userId"])
     uids, safe = _touched_rows(users.cuda(), 30001)
     table = torch.randn(30001, 30, device="cuda")
     rows = torch.randn(TRAIN_BATCH, 30, device="cuda")
-    lib = kernels.library()
     idx = table.get_device()
+
+    def din_inputs(b, t, d, h):
+        """hist, cand, the five weights and the output's gradient."""
+        return (torch.randn(b, t, d, generator=gen, device="cuda"),
+                torch.randn(b, d, generator=gen, device="cuda"),
+                torch.randn(4 * d, h, generator=gen, device="cuda") / (4 * d) ** 0.5,
+                torch.randn(h, generator=gen, device="cuda") * 0.1,
+                torch.randn(h, generator=gen, device="cuda") * 0.1,
+                torch.randn(h, 1, generator=gen, device="cuda") / h ** 0.5,
+                torch.randn(1, generator=gen, device="cuda") * 0.1,
+                torch.randn(b, d, generator=gen, device="cuda"))
+
+    b, t, d = 131072, 64, 10
+    din = din_inputs(b, t, d, 32)
+    wide = din_inputs(8192, 64, 128, 32)
+    movie_ids = zipf_ids(b * (t + 1), 1, 1001, 1.0, gen).view(b, t + 1)
+    g_rows = torch.randn(b, t + 1, d, generator=gen, device="cuda")
+    x = torch.randn(b, t, 3 * d, generator=gen, device="cuda") * 0.5
+    mask = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    att = torch.rand(b, t, generator=gen, device="cuda")
+    u = torch.randn(d, 3 * d, generator=gen, device="cuda") * 0.3
+    u_rz, u_h = u[:, :2 * d].contiguous(), u[:, 2 * d:].contiguous()
+    g_hs = torch.randn(b, t, d, generator=gen, device="cuda")
+    hs = augru.gru_scan_fwd(u, x, mask)
+    _, ahs = augru.augru_scan_fwd(u_rz, u_h, x, att)
+    g_fin = g_hs[:, -1].contiguous()
+    calls = {
+        "rows_gather": lambda: rowio.rows_gather(table, safe),
+        "rows_write": lambda: rowio.rows_write(table, uids, rows),
+        "din_attention.narrow": lambda: attention._din_attention_kernel(*din[:7]),
+        "din_attention_bwd.narrow": lambda: attention._din_narrow_bwd(*din),
+        "din_attention": lambda: attention._din_attention_kernel(*wide[:7]),
+        "din_attention_bwd": lambda: attention._din_attention_bwd_steps(*wide),
+        "embedding_bwd": lambda: embedding.embedding_bwd(g_rows, movie_ids, 1001, 1),
+        "gru_scan_fwd": lambda: augru.gru_scan_fwd(u, x, mask),
+        "gru_scan_bwd": lambda: augru.gru_scan_bwd(u, x, mask, hs, g_hs),
+        "augru_scan_fwd": lambda: augru.augru_scan_fwd(u_rz, u_h, x, att),
+        "augru_scan_bwd": lambda: augru.augru_scan_bwd(u_rz, u_h, x, att, ahs, g_fin),
+    }
+    for name, fn in calls.items():
+        before = _launches(name)
+        fn()
+        if _launches(name) != before + 1:
+            raise AssertionError(f"host_path: {name}'s wrapper did not launch it once")
+    whole = in_turns({k: (fn, HOST_ITERS[k]) for k, fn in calls.items()},
+                     lambda item: host_us(*item), HOST_ROUNDS)
+
     valid = uids < table.shape[0]
     safe_long, valid_ids, valid_rows = safe.long(), uids[valid].long(), rows[valid]
-    stream = kernels.stream_of(idx)
-    out = {}
+    parts = {}
     for kind, args in (("rows_gather", (table, safe)), ("rows_write", (table, uids, rows))):
-        entry = getattr(lib, kind)
+        entry, stream = kernels.TABLE[kind].function(), kernels.TABLE[kind].stream(idx)
         ptrs = (table.data_ptr(), args[1].data_ptr(), rows.data_ptr())
-        misalign = (ptrs[0] | ptrs[2]) & 15
-        scalars = rowio._scalars(120, misalign, TRAIN_BATCH, table.shape[0], idx)
-        empty = rowio._scalars(120, misalign, 0, table.shape[0], idx)
-        out[kind] = {
-            "call": host_us(lambda: getattr(rowio, kind)(*args)),
+        plan = tuple(rowio.launch_plan(120, ptrs[0], ptrs[2], TRAIN_BATCH))
+        empty_plan = tuple(rowio.launch_plan(120, ptrs[0], ptrs[2], 0))
+        scalars = (ctypes.c_int64 * 7)(table.shape[0], TRAIN_BATCH, 120, *plan, idx)
+        empty = (ctypes.c_int64 * 7)(table.shape[0], 0, 120, *empty_plan, idx)
+        parts[kind] = {
             "check": host_us(lambda: rowio._check(kind, idx, *args)),
-            "scalars": host_us(
-                lambda: rowio._scalars(120, misalign, TRAIN_BATCH, table.shape[0], idx)),
             "ctypes_empty_launch": host_us(lambda: entry(*ptrs, empty, stream)),
             "ctypes_launch": host_us(lambda: entry(*ptrs, scalars, stream)),
         }
-    out["library_calls"] = {
+    library_calls = {
         "index_select": host_us(lambda: torch.index_select(table, 0, safe_long)),
         "index_copy_": host_us(lambda: table.index_copy_(0, valid_ids, valid_rows)),
     }
-    return out
+    torch.cuda.synchronize()
+    return {"rounds": HOST_ROUNDS, "iters": HOST_ITERS,
+            "calls": {k: dict(zip(("median", "least", "most"), v)) for k, v in whole.items()},
+            "rows": parts, "library_calls": library_calls}
 
 
 def check_fm_cross(shape, dtype, iters):
@@ -618,9 +696,9 @@ def check_rows(kind, table, id_sets, iters, label):
     # launch plan is timed with this yardstick too).
     launch_plan = getattr(rowio, "launch_plan", None)
     if kind == "rows_gather":
-        before = rows_gather.launches
+        before = _launches("rows_gather")
         out, ref = rows_gather(table, ids), rows_gather_plain(table, ids)
-        launched = rows_gather.launches - before
+        launched = _launches("rows_gather") - before
         ok = torch.equal(out, ref)
         plan = launch_plan and launch_plan(row_bytes, table.data_ptr(), out.data_ptr(), u)
         del out, ref
@@ -643,9 +721,9 @@ def check_rows(kind, table, id_sets, iters, label):
         marker = "rows_gather_kernel"
     else:
         rows = torch.randn(u, table.shape[1], device="cuda").to(table.dtype)
-        before = rows_write.launches
+        before = _launches("rows_write")
         out = rows_write(table.clone(), ids, rows)
-        launched = rows_write.launches - before
+        launched = _launches("rows_write") - before
         ref = rows_write_plain(table.clone(), ids, rows)
         ok = torch.equal(out, ref)
         plan = launch_plan and launch_plan(row_bytes, table.data_ptr(), rows.data_ptr(), u)
@@ -778,9 +856,9 @@ def check_embedding_bwd(b, t, v, d, lo, iters, label):
         return torch.ops.aten.embedding_dense_backward(masked, safe, v, -1, False)
 
     exact = torch.randint(-4, 5, (b, t, d), generator=gen, device="cuda").float() / 64
-    before = embedding_bwd.launches
+    before = _launches("embedding_bwd")
     got = embedding_bwd(exact, ids, v, lo)
-    launched = embedding_bwd.launches - before
+    launched = _launches("embedding_bwd") - before
     twin, lib = embedding_bwd_plain(exact, ids, v, lo, sms), library(exact)
     torch.cuda.synchronize()
     if launched != 1 or not torch.equal(got, twin) or not torch.equal(got, lib):
@@ -1020,6 +1098,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", action="append", choices=KERNELS,
                     help="a kernel to time (repeatable); all of them by default")
+    ap.add_argument("--host-path", action="store_true",
+                    help="time the wrappers' host path alone (`host_path`), no kernel checks")
     ap.add_argument("--json-out", default="")
     args = ap.parse_args(argv)
     import torch
@@ -1033,7 +1113,7 @@ def main(argv=None) -> int:
     label = card_label()
     print(json.dumps({"card": label, "torch": torch.__version__}), flush=True)
     build.library()
-    names = tuple(args.kernel or KERNELS)
+    names = () if args.host_path else tuple(args.kernel or KERNELS)
     rows = []
 
     def emit(name, row):
@@ -1042,7 +1122,7 @@ def main(argv=None) -> int:
 
     run(names, emit)
     host = None
-    if {"rows_gather", "rows_write"} & set(names):
+    if args.host_path or {"rows_gather", "rows_write"} & set(names):
         host = host_path()
         print(json.dumps({"kernel": "host_path", "us_per_call": host}), flush=True)
     if args.json_out:

@@ -192,8 +192,8 @@ def measure(spec: str, args, device, card: str = "") -> dict:
     for s in range(steps):
         if s == args.warmup:
             hard_sync(params)
-            for fn in counters.values():
-                fn.launches = 0
+            for k in counters.values():
+                k.launches = 0
             t0 = time.perf_counter()
         sl = slice(s * batch, (s + 1) * batch)
         feats = {k: v[sl] for k, v in feats_all.items()}
@@ -219,7 +219,7 @@ def measure(spec: str, args, device, card: str = "") -> dict:
         "flops_per_example_M": train_flops / 1e6, "loss": loss,
         "kernel_dtypes": dtypes,
         # over the timed steps
-        "launches": {k: fn.launches for k, fn in counters.items() if fn.launches},
+        "launches": {name: k.launches for name, k in counters.items() if k.launches},
         "device": str(trainer.device), "card": card,
     }
     if not loss == loss:

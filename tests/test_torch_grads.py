@@ -13,6 +13,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from sparrowrecsys_torch.ops import kernels
 from sparrowrecsys_torch.ops.attention import (
     din_attention,
     din_attention_bwd,
@@ -95,7 +96,7 @@ def test_fm_cross_function_on_the_cpu_takes_the_plain_backward():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(32, 5, 8)).astype(np.float32)).requires_grad_()
     g = torch.from_numpy(rng.normal(size=(32, 8)).astype(np.float32))
-    before = (fm_cross.launches, fm_cross_bwd.launches)
+    before = kernels.launch_counts()
     out = fm_cross(x)
     assert out.grad_fn is not None
     (dx,) = torch.autograd.grad(out, x, g)
@@ -103,7 +104,7 @@ def test_fm_cross_function_on_the_cpu_takes_the_plain_backward():
     (ref,) = torch.autograd.grad(fm_cross_plain(xr), xr, g)
     torch.testing.assert_close(dx, ref, rtol=1e-6, atol=1e-5)
     torch.testing.assert_close(fm_cross_bwd(x.detach(), g), fm_cross_bwd_plain(x.detach(), g))
-    assert (fm_cross.launches, fm_cross_bwd.launches) == before
+    assert kernels.launch_counts() == before   # no kernel
 
 
 @pytest.mark.parametrize("zero_preact", [False, True], ids=["masked", "zero_preact"])
@@ -144,7 +145,7 @@ def test_din_attention_function_on_the_cpu_and_bf16_history():
     args, g = _din_inputs(seed=5)
     t_args = [torch.from_numpy(a) for a in args]
     leaves = [a.clone().requires_grad_() for a in t_args]
-    before = (din_attention.launches, din_attention_bwd.launches)
+    before = kernels.launch_counts()
     out = din_attention(*leaves)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
@@ -155,4 +156,4 @@ def test_din_attention_function_on_the_cpu_and_bf16_history():
     assert dh.dtype == dc.dtype == torch.bfloat16
     ref = din_attention_bwd_plain(bf[0].detach(), bf[1].detach(), *t_args[2:], torch.from_numpy(g))
     torch.testing.assert_close(dh, ref[0].bfloat16())
-    assert (din_attention.launches, din_attention_bwd.launches) == before
+    assert kernels.launch_counts() == before   # no kernel

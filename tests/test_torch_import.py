@@ -69,3 +69,17 @@ def test_chip_smoke_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_op_modules_launch_only_through_the_loaders_declarations():
+    """The op modules launch through `ops/kernels.py`'s declarations: none
+    calls the library, its error check or the stream lookup itself, or
+    builds its own int64 scalars array (`kernels.scalars` does)."""
+    pattern = re.compile(r"kernels\.library\(|kernels\.check\b|\bstream_of\b|c_int64\s*\*")
+    offenders = {}
+    for name in ("attention", "augru", "embedding", "fm", "rowio"):
+        with open(os.path.join(PKG, "ops", f"{name}.py")) as fh:
+            hits = pattern.findall(fh.read())
+        if hits:
+            offenders[name] = hits
+    assert offenders == {}

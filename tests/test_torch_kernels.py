@@ -22,6 +22,7 @@ from sparrowrecsys_torch.ops.attention import (
     din_attention_bwd_narrow_plain,
     din_attention_bwd_plain,
     din_attention_plain,
+    narrow,
 )
 from sparrowrecsys_torch.ops import embedding as emb
 from sparrowrecsys_torch.ops.embedding import (
@@ -53,6 +54,23 @@ from sparrowrecsys_torch.tools.kernel_bench import (
     fm_cross_bwd_bf16_sum,
     unit_preactivations,
 )
+
+#: The kernels by name, each counting its own C entry point's calls.
+COUNTERS = kernels.launch_counters()
+
+
+def _fm_counter(dtype, backward=False):
+    name = "fm_cross_bwd" if backward else "fm_cross"
+    return COUNTERS[name if dtype == torch.float32 else name + ".bf16"]
+
+
+def _row_launches():
+    return COUNTERS["rows_gather"].launches, COUNTERS["rows_write"].launches
+
+
+def _din_counter(d, h, backward=False):
+    name = "din_attention_bwd" if backward else "din_attention"
+    return COUNTERS[name + ".narrow" if narrow(d, h) else name]
 
 
 @pytest.fixture
@@ -104,10 +122,11 @@ def test_fm_cross_kernel_matches_plain(cuda_device, dtype, tol, shape):
     bfloat16: 1e-2 (one rounding of the output)."""
     g = torch.Generator(device="cpu").manual_seed(0)
     x = torch.randn(shape, generator=g).to(cuda_device, dtype)
-    before = fm_cross.launches
+    counter = _fm_counter(dtype)
+    before = counter.launches
     out = fm_cross(x)
     torch.cuda.synchronize()
-    assert fm_cross.launches == before + (1 if shape[0] else 0)  # nothing to launch for B=0
+    assert counter.launches == before + (1 if shape[0] else 0)  # nothing to launch for B=0
     assert out.dtype == dtype and tuple(out.shape) == (shape[0], shape[2])
     ref = fm_cross_plain(x).float()
     scale = max(ref.abs().max().item(), 1.0) if ref.numel() else 1.0
@@ -127,10 +146,11 @@ def test_din_attention_kernel_matches_plain(cuda_device, b, t, d, h):
     """float32, another summation order than cuBLAS over 3D*H terms:
     1e-5 relative, and 1e-5 of the output's scale absolute."""
     args = _din_inputs(b, t, d, h, cuda_device)
-    before = din_attention.launches
+    counter = _din_counter(d, h)
+    before = counter.launches
     out = din_attention(*args)
     torch.cuda.synchronize()
-    assert din_attention.launches == before + 1
+    assert counter.launches == before + 1
     ref = din_attention_plain(*args)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * max(1.0, ref.abs().max().item()))
     assert not out[0].any()
@@ -192,10 +212,11 @@ def test_fm_cross_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     g = torch.Generator(device="cpu").manual_seed(1)
     x = torch.randn(shape, generator=g).to(cuda_device, dtype)
     go = torch.randn((shape[0], shape[2]), generator=g).to(cuda_device, dtype)
-    before = fm_cross_bwd.launches
+    counter = _fm_counter(dtype, backward=True)
+    before = counter.launches
     dx = fm_cross_bwd(x, go)
     torch.cuda.synchronize()
-    assert fm_cross_bwd.launches == before + (1 if shape[0] else 0)
+    assert counter.launches == before + (1 if shape[0] else 0)
     assert dx.dtype == dtype and dx.shape == x.shape
     ref = fm_cross_bwd_plain(x, go)
     assert bool(((dx.float() - ref.float()).abs() <= fm_bwd_tolerance(x, go, ref)).all())
@@ -209,10 +230,11 @@ def test_din_attention_bwd_kernel_matches_plain(cuda_device, b, t, d, h):
     (the weight gradients are summed without atomics)."""
     args = _din_inputs(b, t, d, h, cuda_device)
     go = torch.randn(b, d, generator=torch.Generator(device="cpu").manual_seed(2)).to(cuda_device)
-    before = din_attention_bwd.launches
+    counter = _din_counter(d, h, backward=True)
+    before = counter.launches
     got = din_attention_bwd(*args, go)
     torch.cuda.synchronize()
-    assert din_attention_bwd.launches == before + 1
+    assert counter.launches == before + 1
     ref = din_attention_bwd_plain(*args, go)
     for name, x, r in zip(("dh", "dc", "dw1", "db1", "dalpha", "dw2", "db2"), got, ref):
         assert x.shape == r.shape, name
@@ -245,12 +267,12 @@ def test_din_narrow_kernels_match_the_plain_versions(cuda_device, b, t):
     half of every row and a row with no history."""
     args = _without_kinks(_din_inputs(b, t, 10, 32, cuda_device, seed=4))
     go = torch.randn(b, 10, generator=torch.Generator(device="cpu").manual_seed(5)).to(cuda_device)
-    before = (din_attention.narrow_launches, din_attention_bwd.narrow_launches)
+    names = ("din_attention.narrow", "din_attention_bwd.narrow")
+    before = {k: COUNTERS[k].launches for k in names}
     out = din_attention(*args)
     got = din_attention_bwd(*args, go)
     torch.cuda.synchronize()
-    assert (din_attention.narrow_launches, din_attention_bwd.narrow_launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert {k: COUNTERS[k].launches - before[k] for k in names} == dict.fromkeys(names, 1)
     ref = din_attention_plain(*args)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * max(1.0, ref.abs().max().item()))
     for plain in (din_attention_bwd_plain, din_attention_bwd_narrow_plain):
@@ -280,17 +302,16 @@ def test_din_narrow_backward_is_deterministic(cuda_device):
 @pytest.mark.parametrize("d,narrow", [(10, True), (128, False)])
 def test_launch_counters_show_the_path_taken(cuda_device, d, narrow):
     """`kernels.launch_counters()`: D = 10 launches the narrow kernels,
-    D = 128 the tensor cores' (`din_attention` counts both designs)."""
+    D = 128 the tensor cores'; each counts its own entry point alone."""
     counters = kernels.launch_counters()
-    names = ("din_attention", "din_attention_bwd", "din_attention.narrow",
-             "din_attention_bwd.narrow")
-    before = {k: counters[k].launches for k in names}
+    before = kernels.launch_counts()
     args = [a.requires_grad_() for a in _din_inputs(64, 5, d, 32, cuda_device)]
     torch.autograd.grad(din_attention(*args), args, torch.ones(64, d, device=cuda_device))
     torch.cuda.synchronize()
-    ran = {k: counters[k].launches - before[k] for k in names}
-    assert ran == {"din_attention": 1, "din_attention_bwd": 1,
-                   "din_attention.narrow": int(narrow), "din_attention_bwd.narrow": int(narrow)}
+    ran = {k: counters[k].launches - before[k] for k in counters}
+    assert ran == {**dict.fromkeys(counters, 0), "din_attention": int(not narrow),
+                   "din_attention_bwd": int(not narrow), "din_attention.narrow": int(narrow),
+                   "din_attention_bwd.narrow": int(narrow)}
 
 
 @pytest.mark.cuda
@@ -302,11 +323,12 @@ def test_autograd_through_the_kernels_matches_plain_autograd(cuda_device, dtype)
     g = torch.Generator(device="cpu").manual_seed(3)
     x = torch.randn(512, 5, 64, generator=g).to(cuda_device, dtype).requires_grad_()
     go = torch.randn(512, 64, generator=g).to(cuda_device, dtype)
-    before = (fm_cross.launches, fm_cross_bwd.launches)
+    fwd, bwd = _fm_counter(dtype), _fm_counter(dtype, backward=True)
+    before = (fwd.launches, bwd.launches)
     out = fm_cross(x)
     assert out.grad_fn is not None
     (dx,) = torch.autograd.grad(out, x, go)
-    assert (fm_cross.launches, fm_cross_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
     x_ref = x.detach().requires_grad_()
     (dx_ref,) = torch.autograd.grad(fm_cross_plain(x_ref), x_ref, go)
     # autograd of the plain forward rounds dx once in the input dtype, as
@@ -319,11 +341,12 @@ def test_autograd_through_the_kernels_matches_plain_autograd(cuda_device, dtype)
     args[1] = args[1].to(dtype)
     leaves = [a.detach().requires_grad_() for a in args]
     gd = torch.randn(256, 10, generator=g).to(cuda_device)
-    before = din_attention_bwd.launches
+    counter = _din_counter(10, 32, backward=True)
+    before = counter.launches
     out = din_attention(*leaves)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, gd)
-    assert din_attention_bwd.launches == before + 1
+    assert counter.launches == before + 1
     ref_leaves = [a.detach().requires_grad_() for a in args]
     ref = torch.autograd.grad(din_attention_plain(*ref_leaves), ref_leaves, gd)
     for x_, r in zip(got, ref):
@@ -341,7 +364,7 @@ def test_row_kernels_match_plain(cuda_device, dtype, v, d, u):
     g = torch.Generator(device="cpu").manual_seed(4)
     table = torch.randn(v, d, generator=g).to(cuda_device, dtype)
     ids = torch.randperm(v, generator=g)[:u].to(torch.int32).to(cuda_device)
-    before = (rows_gather.launches, rows_write.launches)
+    before = _row_launches()
     got = rows_gather(table, ids)
     assert torch.equal(got, rows_gather_plain(table, ids))
     rows = torch.randn(u, d, generator=g).to(cuda_device, dtype)
@@ -354,8 +377,7 @@ def test_row_kernels_match_plain(cuda_device, dtype, v, d, u):
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     launched = 1 if u else 0
-    assert (rows_gather.launches, rows_write.launches) == (before[0] + launched,
-                                                            before[1] + launched)
+    assert _row_launches() == (before[0] + launched, before[1] + launched)
 
 
 @pytest.mark.cuda
@@ -376,15 +398,14 @@ ROW_WIDTHS = (1, 5, 8, 10, 15, 16, 30, 32, 33, 128, 384)
 def _rows_both_ways(table, gather_ids, write_ids, rows):
     """Gather and write through the kernels and the plain versions: each
     bit-equal, each wrapper launched exactly once (none for U = 0)."""
-    before = (rows_gather.launches, rows_write.launches)
+    before = _row_launches()
     got = rows_gather(table, gather_ids)
     assert torch.equal(got, rows_gather_plain(table, gather_ids))
     out = rows_write(table.clone(), write_ids, rows)
     torch.cuda.synchronize()
     assert torch.equal(out, rows_write_plain(table.clone(), write_ids, rows))
     launched = 1 if gather_ids.numel() and table.shape[1] else 0
-    assert (rows_gather.launches, rows_write.launches) == (before[0] + launched,
-                                                            before[1] + launched)
+    assert _row_launches() == (before[0] + launched, before[1] + launched)
 
 
 @pytest.mark.cuda
@@ -513,10 +534,10 @@ def test_row_adam_at_the_trainers_widths_on_the_card_equals_the_cpu(cuda_device)
         g = _adam_grads(rng, {"g": (30001, 10)})["g"]
         f_cpu = fused_row_adam_update(f_cpu, torch.from_numpy(g), torch.from_numpy(ids),
                                       learning_rate=1e-3)
-        before = (rows_gather.launches, rows_write.launches)
+        before = _row_launches()
         f_card = fused_row_adam_update(f_card, torch.from_numpy(g).to(cuda_device),
                                        torch.from_numpy(ids).to(cuda_device), learning_rate=1e-3)
-        assert (rows_gather.launches, rows_write.launches) == (before[0] + 2, before[1] + 1)
+        assert _row_launches() == (before[0] + 2, before[1] + 1)
         assert torch.equal(f_card.buf.cpu(), f_cpu.buf)
 
 
@@ -635,9 +656,9 @@ def test_embedding_bwd_kernel_matches_its_twin(cuda_device, shape, v, d, lo, dty
         ids.view(-1)[: n // 2] = _zipf_ids(n // 2, lo, v, n).to(dtype)
     base = _exact_grads((n * d + offset,), v)
     g = base[offset:].view(*shape, d)
-    before = embedding_bwd.launches
+    before = COUNTERS["embedding_bwd"].launches
     got = embedding_bwd(g, ids, v, lo)
-    assert embedding_bwd.launches == before + 1
+    assert COUNTERS["embedding_bwd"].launches == before + 1
     assert got.shape == (v, d) and got.dtype == torch.float32
     assert torch.equal(got, embedding_bwd_plain(g, ids, v, lo, _sms()))
     assert torch.equal(got, embedding_bwd(g, ids, v, lo))
@@ -647,7 +668,7 @@ def test_embedding_bwd_kernel_matches_its_twin(cuda_device, shape, v, d, lo, dty
 def test_embedding_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
     ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     g = torch.zeros(8, 10, device=cuda_device)
-    before = embedding_bwd.launches
+    before = COUNTERS["embedding_bwd"].launches
     with pytest.raises(ValueError, match="budget"):
         embedding_bwd(g, ids, 30001, 0)                          # the user table: no fall-back
     with pytest.raises(ValueError, match="float32"):
@@ -660,7 +681,7 @@ def test_embedding_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
         embedding_bwd(g, ids.cpu(), 1001, 0)
     with pytest.raises(ValueError, match="lo"):
         embedding_bwd(g, ids, 1001, 2)
-    assert embedding_bwd.launches == before
+    assert COUNTERS["embedding_bwd"].launches == before
 
 
 @pytest.mark.cuda
@@ -677,11 +698,11 @@ def test_embedding_lookups_on_the_card_take_the_kernel_where_they_fit(cuda_devic
         card = cpu.detach().to(cuda_device).requires_grad_()
         w = torch.randn(512, 9, d, generator=gen)
         (embed_lookup(cpu, ids, mask_zero=mask_zero) * w).sum().backward()
-        before = embedding_bwd.launches
+        before = COUNTERS["embedding_bwd"].launches
         out = embed_lookup(card, ids.to(cuda_device), mask_zero=mask_zero)
         assert (type(out.grad_fn).__name__ == "_MaskedLookupBackward") == takes
         (out * w.to(cuda_device)).sum().backward()
-        assert embedding_bwd.launches == before + takes
+        assert COUNTERS["embedding_bwd"].launches == before + takes
         torch.testing.assert_close(card.grad.cpu(), cpu.grad, rtol=1e-5, atol=1e-5)
     table = torch.randn(1001, 10, device=cuda_device, requires_grad=True)
     card_ids = ids.to(cuda_device)

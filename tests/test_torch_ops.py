@@ -12,6 +12,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from sparrowrecsys_torch.ops import kernels
 from sparrowrecsys_torch.ops.attention import din_attention, din_attention_plain
 from sparrowrecsys_torch.ops.embedding import embed_lookup
 from sparrowrecsys_torch.ops.fm import fm_cross, fm_cross_plain
@@ -97,12 +98,12 @@ def test_din_attention_bf16_history_is_cast_up():
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
-    fm0, din0 = fm_cross.launches, din_attention.launches
+    before = kernels.launch_counts()
     x = torch.randn(4, 5, 8)
     torch.testing.assert_close(fm_cross(x), fm_cross_plain(x))
     args = [torch.from_numpy(a) for a in _din_inputs()]
     torch.testing.assert_close(din_attention(*args), din_attention_plain(*args))
-    assert (fm_cross.launches, din_attention.launches) == (fm0, din0)
+    assert kernels.launch_counts() == before
 
 
 def test_wrappers_raise_on_a_device_that_is_neither_cpu_nor_cuda():

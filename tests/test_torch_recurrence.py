@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from sparrowrecsys_torch.ops import augru as A
+from sparrowrecsys_torch.ops import kernels
 
 torch.set_num_threads(2)
 
@@ -309,6 +310,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _ran(before):
+    """The kernels launched since the `kernels.launch_counts()` snapshot
+    `before`, by name, with their launches."""
+    return {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+
+
 CARD_SHAPES = [(333, 7, 10), (1000, 64, 10), (65, 5, 32), (129, 3, 7), (31, 64, 1), (2, 1, 16)]
 
 
@@ -316,10 +323,10 @@ CARD_SHAPES = [(333, 7, 10), (1000, 64, 10), (65, 5, 32), (129, 3, 7), (31, 64, 
 @pytest.mark.parametrize("b,t,h", CARD_SHAPES)
 def test_gru_kernels_match_their_twins(cuda_device, b, t, h):
     a = _inputs(b, t, h, seed=b + t, device=cuda_device)
-    before = (A.gru_scan_fwd.launches, A.gru_scan_bwd.launches)
+    before = kernels.launch_counts()
     hs = A.gru_scan_fwd(a["u"], a["gx"], a["mask"])
     bwd = A.gru_scan_bwd(a["u"], a["gx"], a["mask"], hs, a["g_hs"])
-    assert (A.gru_scan_fwd.launches, A.gru_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert _ran(before) == {"gru_scan_fwd": 1, "gru_scan_bwd": 1}
     twin = A.gru_scan_fwd_plain(a["u"], a["gx"], a["mask"])
     _close(hs, twin, OUT_TOL, "hs")
     assert torch.equal(hs[0], torch.zeros_like(hs[0]))          # no live step
@@ -337,11 +344,10 @@ def test_gru_kernels_match_their_twins(cuda_device, b, t, h):
 def test_augru_kernels_match_their_twins(cuda_device, b, t, h):
     a = _inputs(b, t, h, seed=b * t, device=cuda_device)
     x = a["gx"]
-    before = (A.augru_scan_fwd.launches, A.augru_scan_bwd.launches)
+    before = kernels.launch_counts()
     hf, hs = A.augru_scan_fwd(a["u_rz"], a["u_h"], x, a["att"])
     bwd = A.augru_scan_bwd(a["u_rz"], a["u_h"], x, a["att"], hs, a["g_fin"])
-    assert (A.augru_scan_fwd.launches, A.augru_scan_bwd.launches) == (before[0] + 1,
-                                                                      before[1] + 1)
+    assert _ran(before) == {"augru_scan_fwd": 1, "augru_scan_bwd": 1}
     twin_hf, twin_hs = A.augru_scan_fwd_plain(a["u_rz"], a["u_h"], x, a["att"])
     _close(hf, twin_hf, OUT_TOL, "h_final")
     _close(hs, twin_hs, OUT_TOL, "hs")
@@ -400,12 +406,12 @@ def test_dien_training_step_launches_each_scan_once(cuda_device):
     feats, labels = _dien_batch(256, t, 1001, 300)
     feats = {k: v.to(cuda_device) for k, v in feats.items()}
     names = ("gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd", "augru_scan_bwd")
-    before = {n: getattr(A, n).launches for n in names}
+    before = kernels.launch_counts()
     mstate = M.init_metrics("cuda")
     for _ in range(2):
         params, opt_state, mstate = trainer._train_step(
             params, opt_state, mstate, feats, labels.to(cuda_device), torch.ones(256,
                                                                                   device="cuda"))
     torch.cuda.synchronize()
-    assert {n: getattr(A, n).launches - before[n] for n in names} == dict.fromkeys(names, 2)
+    assert {n: _ran(before).get(n) for n in names} == dict.fromkeys(names, 2)
     assert all(torch.isfinite(v).all() for v in params.values())

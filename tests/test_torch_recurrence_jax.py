@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from sparrowrecsys_torch.ops import augru as A
+from sparrowrecsys_torch.ops import kernels
 
 torch.set_num_threads(2)
 
@@ -162,9 +163,10 @@ def test_kernels_match_jax(case):
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     names = ("gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd", "augru_scan_bwd")
-    before = {n: getattr(A, n).launches for n in names}
+    counters = kernels.launch_counters()
+    before = {n: counters[n].launches for n in names}
     _check(case, "cuda")
-    assert {n: getattr(A, n).launches - before[n] for n in names} == dict.fromkeys(names, 1)
+    assert {n: counters[n].launches - before[n] for n in names} == dict.fromkeys(names, 1)
 
 
 if __name__ == "__main__":
