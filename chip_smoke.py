@@ -31,7 +31,11 @@ Phases, each fatal on failure:
    table on the lazy row-Adam): one step's loss and gradients card
    against CPU; Trainer.fit for 2 epochs of 8 steps (the loss falls, the
    last AUC beats 0.5, examples/s) with the launch counters read around
-   it, held against the same fit on the CPU (per-epoch loss and AUC,
+   it and the trainer's step counts (`Trainer.step_counts()`: a model
+   without a lazy row-Adam table warms up eagerly, captures its step as
+   one CUDA graph and replays it; a replay launches nothing from the
+   host, so the counters count the eager and captured steps), held
+   against the same fit on the CPU (per-epoch loss and AUC,
    each parameter's drift); one step's forward/backward/optimizer ms and
    the device's busy time and idle share. Then the hand-off:
    `training.run` exports a DeepFMv2 and a DIEN on the card, and the
@@ -449,6 +453,18 @@ def make_trainer(name, cfg, device=None):
                    loss_fn=dien_loss_fn() if name == "dien" else None, device=device)
 
 
+def fit_steps(trainer, n):
+    """`Trainer.step_counts()` after a fit of `n` steps: where the step may
+    take the graph (on the card, no sparse table) the warm-up's eager
+    steps, one capture and replays after it (`Trainer._train_step`);
+    elsewhere every step eager."""
+    from sparrowrecsys_torch.training.loop import GRAPH_WARMUP_STEPS
+
+    if not trainer._graphable(None):
+        return {"eager": n, "captured": 0, "replayed": 0}
+    return {"eager": GRAPH_WARMUP_STEPS, "captured": 1, "replayed": n - GRAPH_WARMUP_STEPS - 1}
+
+
 def train_data(name, rows):
     """The synthetic rows phase 5 trains `name` on; DIEN's with its negative
     history columns (seed 2020, as `training.run` adds them)."""
@@ -722,8 +738,14 @@ def training_phase():
         result = trainer.fit(ds, params=params, verbose=True)
         counts[name] = read_counts()
         hist = result.history
+        steps = trainer.step_counts()
         log(f"[train] {name} fit: {json.dumps(hist)}; {result.examples_per_sec:.1f} "
-            f"examples/s over the steady epoch; launches {json.dumps(counts[name])}")
+            f"examples/s over the steady epoch; launches {json.dumps(counts[name])} (eager and "
+            f"captured steps: a replayed step launches nothing from the host); steps "
+            f"{json.dumps(steps)}")
+        if steps != fit_steps(trainer, 2 * TRAIN_STEPS):
+            raise AssertionError(f"{name}: the fit's steps ran {steps}, want "
+                                 f"{fit_steps(trainer, 2 * TRAIN_STEPS)}")
         if not hist[-1]["loss"] < hist[0]["loss"]:
             raise AssertionError(f"{name}: the loss did not fall: {hist}")
         if not hist[-1]["roc_auc"] > 0.5:

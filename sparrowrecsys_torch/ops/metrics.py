@@ -9,6 +9,7 @@ round trip to the host. `exact_auc` is the sort-based host computation.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -30,6 +31,15 @@ class MetricState(NamedTuple):
 
 
 def _thresholds(device) -> torch.Tensor:
+    """Keras's thresholds on `device`: one tensor a device, made at its
+    first use and shared after, so that `update_metrics` copies nothing
+    from the host. Such a copy waits for the card, and a step that waits
+    cannot be captured as a CUDA graph (`training/step_graph.py`)."""
+    return _thresholds_on(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds_on(device: torch.device) -> torch.Tensor:
     # Keras: [-eps, k/(T-1)..., 1+eps], equally spaced in (0, 1) plus sentinels.
     t = NUM_THRESHOLDS
     inner = (torch.arange(t - 2, dtype=torch.float32, device=device) + 1.0) / float(t - 1)

@@ -12,7 +12,11 @@ share of three peaks of an H100 SXM (NVIDIA's data sheet): BF16_PEAK
 and HBM_BYTES_PER_S against the coarse bytes model; the
 dtype each CUDA kernel of the step ran in (the DIN kernels take float32
 only, so under bfloat16 compute DIN hands them its float32 lookups); each
-kernel's launches; and the card's name and power limit.
+kernel's launches over the timed steps, and the trainer's step counts
+(`Trainer.step_counts()`: after the warm-up a step is captured once as a
+CUDA graph and replayed, and a replay launches nothing from the host, so
+the launches count the eager and captured steps); and the card's name
+and power limit.
 
 The FLOPs are the JAX tool's analytic count (`flops_per_example`, 3x
 the forward: forward, input gradient and weight gradient) and the bytes
@@ -218,8 +222,10 @@ def measure(spec: str, args, device, card: str = "") -> dict:
         "f32_peak_share": rate / F32_PEAK, "hbm_share_est": hbm,
         "flops_per_example_M": train_flops / 1e6, "loss": loss,
         "kernel_dtypes": dtypes,
-        # over the timed steps
+        # over the timed steps; a replayed step launches nothing from the
+        # host, so these count the eager and captured steps alone
         "launches": {name: k.launches for name, k in counters.items() if k.launches},
+        "step_counts": trainer.step_counts(),
         "device": str(trainer.device), "card": card,
     }
     if not loss == loss:

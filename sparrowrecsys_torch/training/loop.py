@@ -65,6 +65,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import profiler as _profiler
 from torch.func import functional_call
 
 from sparrowrecsys_torch.config import TrainConfig
@@ -93,6 +94,7 @@ from sparrowrecsys_torch.training.row_optim import (
     fused_table,
     init_fused_row_adam,
 )
+from sparrowrecsys_torch.training.step_graph import StepGraph, leaves
 from sparrowrecsys_torch.utils.device import resolve_device
 from sparrowrecsys_torch.utils.profiling import span
 
@@ -108,22 +110,12 @@ class TrainResult:
     opt_state: Any = None
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for t in tree:
-            yield from _leaves(t)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
-
-
 def hard_sync(tree) -> None:
     """Wait for the work that produces `tree` (a tensor, or a dict, list
     or tuple of them, nested): one element of its first non-empty leaf is
     read back to the host, which completes only after the work queued
     before it on the leaf's stream. JAX: `training/loop.py::hard_sync`."""
-    leaf = next((t for t in _leaves(tree) if t.numel()), None)
+    leaf = next((t for t in leaves(tree) if t.numel()), None)
     if leaf is not None:
         leaf.reshape(-1)[:1].cpu()
 
@@ -164,6 +156,13 @@ def _moment_dtype(name: str) -> Optional[torch.dtype]:
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
         raise ValueError(f"big_moment_dtype={name!r} is not a floating torch dtype")
     return dtype
+
+
+#: Eager steps a trainer runs on the card, on the capture's stream, before
+#: it captures its step as a CUDA graph (PyTorch's guidance for capture):
+#: lazy set-up, such as cuBLAS's handles and workspaces for that stream and
+#: the cached metric thresholds, happens outside the capture.
+GRAPH_WARMUP_STEPS = 3
 
 
 class Trainer:
@@ -214,6 +213,12 @@ class Trainer:
         #: Datasets at most this large are uploaded to the device once per
         #: fit; larger ones upload each batch.
         self.device_resident_bytes = 2 << 30
+        #: The captured step (`_train_step`), the eager steps that may warm
+        #: it up since the last one was dropped, and the capture's stream.
+        self._graph: Optional[StepGraph] = None
+        self._warm = 0
+        self._capture_stream = None
+        self._step_counts = {"eager": 0, "captured": 0, "replayed": 0}
 
     # ------------------------------------------------------------------
     def _dense_view(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -451,15 +456,80 @@ class Trainer:
                     v.add_(updates[k])
             return params, opt_state
 
-    def _train_step(self, params, opt_state, mstate, feats, labels, mask, generator=None):
-        """One step; updates `params` (and sparse buffers) in place and
-        returns (params, opt_state, mstate)."""
+    def _step(self, params, opt_state, mstate, feats, labels, mask, generator=None):
+        """The step launched op by op: updates `params` (and sparse buffers)
+        in place and returns (params, opt_state, mstate)."""
         with span("trainer.step"):
             logits, _, loss_sum, grads = self.loss_and_grads(
                 params, opt_state, feats, labels, mask, generator)
             params, opt_state = self.apply_grads(params, opt_state, grads, feats)
             mstate = M.update_metrics(mstate, torch.sigmoid(logits), labels, loss_sum, mask)
         return params, opt_state, mstate
+
+    def _train_step(self, params, opt_state, mstate, feats, labels, mask, generator=None):
+        """One step; updates `params` (and sparse buffers) in place and
+        returns (params, opt_state, mstate).
+
+        On the card the step is captured once as a CUDA graph and replayed
+        (`training/step_graph.py`) where it can be: no plan, no sparse
+        tables, no per-step `generator`, no `torch.profiler` recording (a
+        traced step runs eagerly, so its spans and kernels are seen), and a
+        batch of the captured keys, shapes and dtypes on the params and
+        optimizer state the graph holds. GRAPH_WARMUP_STEPS such steps run
+        eagerly first, on the stream the graph is captured on; the next one
+        captures the graph and replays it once. Any other step runs eagerly.
+        One on the graph's params and state copies its new states into the
+        graph's tensors, so the graph stays; one on other params or state
+        drops the graph, which is warmed up and captured again for the new
+        state. Once a graph holds them, the optimizer and metric states a
+        step returns are the graph's tensors, which the next step overwrites
+        in place. `step_counts()` counts the three kinds of step."""
+        graph = self._graph
+        if graph is not None and not graph.holds(params, opt_state):
+            graph = self._graph = None
+            self._warm = 0
+        if self._graphable(generator):
+            if graph is not None and graph.fits(feats, labels, mask):
+                self._step_counts["replayed"] += 1
+                return graph.replay(feats, labels, mask, mstate)
+            if graph is None and self._warm == GRAPH_WARMUP_STEPS:
+                graph = self._graph = StepGraph(self._step, params, opt_state, mstate, feats,
+                                                labels, mask, self._capture_stream)
+                self._step_counts["captured"] += 1
+                return graph.replay(feats, labels, mask, mstate)
+            if graph is None:
+                self._warm += 1
+                self._step_counts["eager"] += 1
+                return self._step_on_capture_stream(params, opt_state, mstate, feats, labels, mask)
+        self._step_counts["eager"] += 1
+        out = self._step(params, opt_state, mstate, feats, labels, mask, generator)
+        return out if graph is None else graph.keep(*out)
+
+    def _graphable(self, generator) -> bool:
+        """Whether a step may run as the captured graph, by what it can see."""
+        return (self.device.type == "cuda" and self.plan is None and not self.sparse_tables
+                and generator is None and not _profiler._is_profiler_enabled)
+
+    def _step_on_capture_stream(self, *args):
+        """A warm-up step, on the stream the graph is captured on. Each
+        warm-up step runs there, not only the last: the caching allocator
+        keeps its blocks by stream, and a step on a second stream would
+        allocate them all a second time."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        here = torch.cuda.current_stream(self.device)
+        self._capture_stream.wait_stream(here)
+        with torch.cuda.stream(self._capture_stream):
+            out = self._step(*args)
+        here.wait_stream(self._capture_stream)
+        return out
+
+    def step_counts(self) -> Dict[str, int]:
+        """{"eager", "captured", "replayed"}: this trainer's `_train_step`
+        calls by how they ran. A kernel's `launches` counter counts host
+        calls, so it counts the eager and captured steps and not the
+        replayed ones."""
+        return dict(self._step_counts)
 
     # ------------------------------------------------------------------
     def _use_blocks(self, padded: int) -> bool:
