@@ -1,8 +1,12 @@
-"""The CTR ranking model zoo: the port of `sparrowrecsys_tpu/models`.
+"""The CTR ranking model zoo: the port of `sparrowrecsys_tpu/models`, and
+DLRM-DCNv2 beside it.
 
 Each is an `nn.Module` mapping a feature dict of tensors to logits [B]
-(DIEN: to (logits, aux)), with the flax parameter names of its
-counterpart, so `training.checkpoint.params_from_flax` loads its exports.
+(DIEN: to (logits, aux)). The eight ported models keep the flax parameter
+names of their counterparts, so `training.checkpoint.params_from_flax`
+loads their exports. `dlrm_dcnv2` (`models/dlrm.py`, the MLPerf
+recommendation benchmark's model) has no counterpart in the JAX package:
+its tests hold it against the plain reference `reference/dlrm_dcnv2.py`.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import Callable, Dict
 from sparrowrecsys_torch.models.deepfm import DeepFM, DeepFMv2
 from sparrowrecsys_torch.models.dien import DIEN
 from sparrowrecsys_torch.models.din import DIN
+from sparrowrecsys_torch.models.dlrm import DLRMDCNv2
 from sparrowrecsys_torch.models.embedding_mlp import EmbeddingMLP
 from sparrowrecsys_torch.models.neuralcf import NeuralCF, NeuralCFTwoTower
 from sparrowrecsys_torch.models.wide_deep import WideNDeep
@@ -26,6 +31,7 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "deepfm_v2": DeepFMv2,
     "din": DIN,
     "dien": DIEN,
+    "dlrm_dcnv2": DLRMDCNv2,
 }
 
 

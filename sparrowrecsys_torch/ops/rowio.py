@@ -129,13 +129,20 @@ def _check(name, dev, table, ids, rows=None):
     return v, d, u
 
 
-def rows_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """[V, D] table, [U] int32 ids in [0, V) -> [U, D] rows."""
+def rows_gather(table: torch.Tensor, ids: torch.Tensor, out=None) -> torch.Tensor:
+    """[V, D] table, [U] int32 ids in [0, V) -> [U, D] rows, written into
+    `out` (a contiguous [U, D] tensor of the table's dtype and device) where
+    it is given."""
     dev = table.get_device()  # -1 off the card
     if dev < 0 and table.is_cpu:
-        return rows_gather_plain(table, ids)
-    v, d, u = _check("rows_gather", dev, table, ids)
-    out = table.new_empty((u, d))
+        if out is None:
+            return rows_gather_plain(table, ids)
+        return torch.index_select(table, 0, ids.long(), out=out)
+    if out is None:
+        v, d, u = _check("rows_gather", dev, table, ids)
+        out = table.new_empty((u, d))
+    else:
+        v, d, u = _check("rows_gather", dev, table, ids, out)
     if u and d:
         tp, op = table.data_ptr(), out.data_ptr()
         row_bytes = d * table.itemsize

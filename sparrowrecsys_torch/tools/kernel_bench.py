@@ -62,6 +62,8 @@ L2_BYTES = 50 * 2 ** 20
 WAVE_ROWS = 8192
 #: The training path's batch.
 TRAIN_BATCH = 65536
+#: The rows of DLRM-DCNv2's largest tables in the benchmark's cell.
+DLRM_ROWS = 5_000_000
 KERNELS = ("fm_cross", "din_attention", "fm_cross_bwd", "din_attention_bwd",
            "rows_gather", "rows_write", "embedding_bwd",
            "gru_scan_fwd", "gru_scan_bwd", "augru_scan_fwd", "augru_scan_bwd")
@@ -773,7 +775,9 @@ def rows_cases(iters_small, iters_large):
     (DeepFMv2's lazy row-Adam on its user and movie tables: the [V, 3D]
     buffer gather, the [V, D] gradient gather and the buffer write, with
     the ids of one synthetic batch of 65536 padded and routed as
-    `_touched_rows` does) and at the shapes of KERNELS.md ([2^21, 128] and
+    `_touched_rows` does), at DLRM-DCNv2's largest call of the benchmark's
+    cell ([5,000,000, 384] and [5,000,000, 128] f32) and at the shapes of
+    KERNELS.md ([2^21, 128] and
     [2^21, 384] f32, and [2^21, 128] bf16, 65536 distinct sorted ids, a
     new draw for each timed set until the rows they touch span 4 x
     L2_BYTES)."""
@@ -798,6 +802,27 @@ def rows_cases(iters_small, iters_large):
                                              f"train {name} gradient"))
         del buf, grad
         torch.cuda.empty_cache()
+    # DLRM-DCNv2's largest row-Adam call in the benchmark's cell: feature
+    # 20's 100 ids an example of 8192, Zipf(1.0) over a 5,000,000-row table
+    # whose rows a seeded permutation scatters, routed as `_touched_rows`
+    # does: the [V, 384] buffer gather and write, the [V, 128] gradient
+    # gather.
+    g = torch.Generator(device="cuda").manual_seed(7)
+    v = DLRM_ROWS
+    ids = torch.randperm(v, generator=g, device="cuda")[zipf_ids(8192 * 100, 0, v, 1.0, g).long()]
+    uids, safe = _touched_rows(ids, v)
+    buf = torch.randn(v, 384, generator=g, device="cuda")
+    out["rows_gather"].append(check_rows("rows_gather", buf, [safe], iters_large,
+                                         "dlrm feature 20 buffer"))
+    out["rows_write"].append(check_rows("rows_write", buf, [uids], iters_large,
+                                        "dlrm feature 20 buffer"))
+    del buf
+    torch.cuda.empty_cache()
+    grad = torch.randn(v, 128, generator=g, device="cuda")
+    out["rows_gather"].append(check_rows("rows_gather", grad, [safe], iters_large,
+                                         "dlrm feature 20 gradient"))
+    del grad, ids, uids, safe
+    torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(5)
     for width, dtype in ((128, torch.float32), (384, torch.float32), (128, torch.bfloat16)):
         v = 2 ** 21
@@ -1058,6 +1083,9 @@ def _cases() -> Dict[str, List[Callable[[], dict]]]:
             lambda: check_embedding_bwd(131072, 65, 1001, 10, 1, 50, "din movie"),
             # A genre column of that batch into its 19 x 10 table.
             lambda: check_embedding_bwd(131072, 1, 19, 10, 0, 200, "din genre"),
+            # DLRM-DCNv2's largest small table at D = 128 (feature 24, 108
+            # rows, one id an example of 8192).
+            lambda: check_embedding_bwd(8192, 1, 108, 128, 0, 200, "dlrm feature 24"),
         ],
         # DIEN's recurrences in the benchmark's cell (batch 131072, 64-movie
         # histories) and at its published T = 5 at the training batch.

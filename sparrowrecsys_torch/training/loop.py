@@ -14,7 +14,9 @@ optimizer='adam', metrics=[accuracy, ROC-AUC, PR-AUC]); fit(...)` with:
 - `sparse_tables`: the named embedding tables leave the dense optimizer
   and live in a fused [V, 3D] row-Adam buffer (`training/row_optim.py`);
   the step differentiates the buffer's table view and updates only the
-  touched rows, through the row kernels on the card;
+  touched rows, through the row kernels on the card (the span
+  `trainer.row_adam`, inside `trainer.optimizer`). A model built on the
+  meta device stays there, for tables too large to hold twice;
 - `bf16_table_params`: the big leaves stored in bfloat16 with float32
   masters in the optimizer state; `big_moment_dtype` narrows the big
   leaves' moments (`training/optim.py`);
@@ -90,7 +92,7 @@ from sparrowrecsys_torch.training.optim import (
 )
 from sparrowrecsys_torch.training.row_optim import (
     FusedRowAdamState,
-    fused_row_adam_update,
+    fused_row_adam_update_many,
     fused_table,
     init_fused_row_adam,
 )
@@ -189,7 +191,10 @@ class Trainer:
         self.loss_fn = loss_fn
         self.config = config or TrainConfig()
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        # A model built on the meta device (tables too large to hold twice)
+        # stays there: its parameters are shapes, and each step passes its own.
+        on_meta = all(p.is_meta for p in model.parameters())
+        self.model = model if on_meta else model.to(self.device)
         #: {param module name: (feature columns gathering from it, ...)},
         #: e.g. {"emb_userId": ("userId",)}: those tables take the lazy
         #: row-Adam (untouched rows' moments freeze rather than decay).
@@ -269,8 +274,10 @@ class Trainer:
         params, copied onto the device. Under a plan the params are this
         rank's shards (`parallel/mesh.py`'s rule on the whole shapes) and
         the optimizer splits its leaves by their whole sizes. With sparse
-        tables the params hold placeholders (`_dense_view`)."""
-        params = {k: v.to(self.device).clone() for k, v in params.items()}
+        tables the params hold placeholders (`_dense_view`), and each table
+        is copied once, into its row-Adam buffer."""
+        params = {k: v.to(self.device) if k in self._table_keys and self.plan is None
+                  else v.to(self.device).clone() for k, v in params.items()}
         if self.plan is not None:
             self._shardings = param_shardings(params, self.plan, self.min_rows_to_shard)
             self._whole_shapes = {k: tuple(v.shape) for k, v in params.items()}
@@ -435,19 +442,23 @@ class Trainer:
                 # order the dense state was initialised with.
                 gdense = {k: v if k in self._table_keys else grads[k] for k, v in params.items()}
                 updates, dstate = self.tx.update(gdense, opt_state["dense"], params)
-                rows = {}
-                for mod, cols in self.sparse_tables.items():
-                    ids = torch.cat([feats[c].reshape(-1).to(torch.int32) for c in cols])
-                    if self.plan is not None:
-                        # The global batch's ids; a shard's own rows by local id.
-                        ids = self.plan.all_gather(ids, self.plan.data_axis)
-                        if self._sharded(f"{mod}.table"):
-                            ids = ids - self.plan.model_index * opt_state["rows"][mod].buf.shape[0]
-                    rows[mod] = fused_row_adam_update(
-                        opt_state["rows"][mod], grads[f"{mod}.table"], ids,
+                with span("trainer.row_adam"):
+                    ids = []
+                    for mod, cols in self.sparse_tables.items():
+                        got = [feats[c].reshape(-1).to(torch.int32) for c in cols]
+                        got = got[0] if len(got) == 1 else torch.cat(got)
+                        if self.plan is not None:
+                            # The global batch's ids; a shard's own rows by local id.
+                            got = self.plan.all_gather(got, self.plan.data_axis)
+                            if self._sharded(f"{mod}.table"):
+                                got = got - (self.plan.model_index
+                                             * opt_state["rows"][mod].buf.shape[0])
+                        ids.append(got)
+                    rows = dict(zip(self.sparse_tables, fused_row_adam_update_many(
+                        [opt_state["rows"][mod] for mod in self.sparse_tables],
+                        [grads[f"{mod}.table"] for mod in self.sparse_tables], ids,
                         learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
-                        b2=cfg.adam_b2, eps=cfg.adam_eps,
-                    )
+                        b2=cfg.adam_b2, eps=cfg.adam_eps)))
                 opt_state = {"dense": dstate, "rows": rows}
             else:
                 updates, opt_state = self.tx.update(grads, opt_state, params)

@@ -5,8 +5,9 @@ and copies when CUDA is there) and writes it into `log_dir` as a Chrome
 trace (`<host>_<pid>.<time>.pt.trace.json`, which chrome://tracing,
 Perfetto and TensorBoard open). `span` and `backward_span` put the
 program's own ranges into such a trace: the training step's forward,
-backward and optimizer (`training/loop.py`) and the embedding lookups'
-backward (`ops/embedding.py`). Tracing is on exactly while a profiler
+backward and optimizer and the row-Adam inside it (`training/loop.py`),
+the embedding lookups' backward (`ops/embedding.py`), and the models'
+layers (`dien.*` in `models/dien.py`, `dlrm.*` in `models/dlrm.py`). Tracing is on exactly while a profiler
 records; otherwise a span costs one read of the profiler's flag and adds
 no autograd node. `StepTimer` gives EMA-smoothed per-step
 wall times and examples/s from the host clock alone; `mark_sync` waits

@@ -188,3 +188,68 @@ def test_lookup_backward_is_a_span_on_either_path(tmp_path, sharded):
     want = torch.zeros(11, 3)
     want[3], want[4], want[10] = 1.0, 2.0, 1.0
     assert torch.equal(grad, want)
+
+
+DLRM_SPANS = ("dlrm.bottom", "dlrm.lookups", "dlrm.cross", "dlrm.top")
+
+
+@pytest.fixture(scope="module")
+def dlrm():
+    """A tiny DLRM trainer with one table on the lazy row-Adam: (trainer,
+    (params, opt_state, mstate) after one warm step, batch)."""
+    torch.manual_seed(5)
+    model = build_model("dlrm_dcnv2", embedding_dim=4, dense_sizes=(8, 4),
+                        over_sizes=(8, 1), cross_layers=2, cross_rank=3,
+                        table_rows=(5000, 7, 30), multi_hot=(2, 1, 3))
+    trainer = Trainer(model, TrainConfig(batch_size=BATCH, epochs=1), device="cpu",
+                      sparse_tables=model.sparse_tables())
+    assert tuple(trainer.sparse_tables) == ("emb_cat_0",)
+    params, opt_state = trainer.prepare({k: v.detach().clone()
+                                         for k, v in model.state_dict().items()})
+    g = torch.Generator().manual_seed(2)
+    feats = {"dense": torch.randn(BATCH, 13, generator=g)}
+    for f, (rows, k) in enumerate(zip(model.table_rows, model.multi_hot)):
+        feats[f"cat_{f}"] = torch.randint(0, rows, (BATCH, k), generator=g, dtype=torch.int32)
+    batch = (feats, (torch.rand(BATCH, generator=g) < 0.5).float(), torch.ones(BATCH))
+    state = trainer._train_step(params, opt_state, M.init_metrics("cpu"), *batch)
+    return trainer, state, batch
+
+
+def test_dlrm_and_row_adam_spans_under_a_profiler_and_free_without(dlrm, tmp_path,
+                                                                     monkeypatch):
+    """Under a recording profiler the model's four forward spans nest in
+    `trainer.forward`, the cross layers' backward in `trainer.backward`, and
+    the row-Adam in `trainer.optimizer`; with none recording, no span
+    enters a `record_function`, and the spans add no autograd node."""
+    from sparrowrecsys_torch.models import dlrm as dlrm_model
+
+    with tutils.trace(str(tmp_path)):
+        _step(dlrm)
+    events = _events(tmp_path)
+    (fwd,), (bwd,), (opt,) = [_ranges(events, name) for name in PHASES]
+    for name in DLRM_SPANS:
+        ((s, t),) = _ranges(events, name)
+        assert fwd[0] <= s and t <= fwd[1], name
+    ((s, t),) = _ranges(events, "dlrm.cross.backward")
+    assert bwd[0] <= s and t <= bwd[1]
+    ((s, t),) = _ranges(events, "trainer.row_adam")
+    assert opt[0] <= s and t <= opt[1]
+    assert len(_ranges(events, "embedding.backward")) == 3
+
+    entered = []
+    real = torch.autograd.profiler.record_function.__enter__
+
+    def count(self):
+        entered.append(self.name)
+        return real(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.autograd.profiler.record_function, "__enter__", count)
+        _step(dlrm)
+    assert entered == []
+    with_spans = _graph_nodes(dlrm, monkeypatch)
+    with monkeypatch.context() as m:
+        m.setattr(dlrm_model, "span", lambda name: contextlib.nullcontext())
+        m.setattr(dlrm_model, "backward_span", lambda name, fn, *a, **k: fn(*a, **k))
+        m.setattr(emb, "backward_span", lambda name, fn, *a, **k: fn(*a, **k))
+        assert _graph_nodes(dlrm, m) == with_spans

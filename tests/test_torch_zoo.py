@@ -98,10 +98,16 @@ def _jax_out(name, kwargs, tree, feats):
 
 
 def test_registry_builds_all_eight_zoo_models():
+    """The eight ported models, and DLRM-DCNv2 beside them (built on the
+    meta device: its published tables hold 204 M rows)."""
     assert sorted(MODEL_REGISTRY) == sorted(
-        ZOO + ("deepfm", "deepfm_v2", "din", "dien"))
+        ZOO + ("deepfm", "deepfm_v2", "din", "dien", "dlrm_dcnv2"))
     for name in MODEL_REGISTRY:
-        assert isinstance(torch_build(name), torch.nn.Module)
+        if name == "dlrm_dcnv2":
+            with torch.device("meta"):
+                assert isinstance(torch_build(name), torch.nn.Module)
+        else:
+            assert isinstance(torch_build(name), torch.nn.Module)
     with pytest.raises(KeyError):
         torch_build("no_such_model")
 
